@@ -1,0 +1,523 @@
+"""Smoke run of the PyTorch + CUDA port (`pislamfusion_tpu_torch`) on one GPU.
+
+Run from the repository root, with no arguments, on a machine with one
+NVIDIA H100 and the CUDA toolkit:
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from `pislamfusion_tpu_torch/csrc/`
+(one `nvcc` per source, all started together), then:
+
+1. holds each kernel against its plain PyTorch version on the card at the
+   shapes of the main path, and times both;
+2. drives the main path, `FastVO.process`, at 1920x1080 (ORB-1000, 8
+   levels, 5 bands, 24 frames of bench.py's synthetic survey strip), with
+   every kernel's launch count set to 0 just before and read just after;
+   checks tracking as bench.py does, times the run with CUDA events,
+   breaks one more pass down by stage, and runs 8 frames under
+   torch.profiler for the device's busy share, device time by kernel and
+   host time by operator;
+3. checks the card's run against the port's plain CPU run on a small
+   strip (600x640), and prints the kernel table and the result line.
+
+Every failure raises and ends the script with a nonzero exit code. With no
+CUDA device it exits nonzero before printing any result.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
+# dense bf16 / fp32 (non-tensor) operations per second
+HBM_BYTES_PER_S = 3.35e12
+BF16_OPS_PER_S = 989e12
+FP32_OPS_PER_S = 67e12
+
+ALT = 120.0          # bench.py: flying height (m)
+STEP_M = 4.0         # bench.py: straight strip, 4 m per frame
+
+
+# ---------------------------------------------------------------------------
+# bench.py's synthetic survey, rendered with numpy tables and torch products
+# ---------------------------------------------------------------------------
+
+def render_strip(K: int, H: int, W: int, fx: float, gs: float, ts: int,
+                 device, seed: int = 0):
+    """K uint8 RGB frames [K, H, W, 3] (a tensor on `device`) of a nadir
+    camera flying a straight strip over bench.py's random texture
+    (bench.py:89-176: blotchy rectangles over noise, `ts` texels square,
+    `gs` metres per texel), and the true poses [K, 7] (numpy, c2w in plane
+    coordinates). Each frame is bench.py's separable bilinear resampling of
+    the texture, computed here per frame."""
+    import torch
+    rng = np.random.default_rng(seed)
+    tex = np.full((ts, ts, 3), 128.0, np.float32)
+    tex += rng.normal(0, 12, tex.shape).astype(np.float32)
+    for _ in range(3000 * (ts * ts // (2048 * 2048) + 1)):
+        y, x = rng.integers(10, ts - 48, 2)
+        h, w = rng.integers(4, 24, 2)
+        tex[y:y + h, x:x + w] = rng.uniform(10, 245, 3)
+    tex = np.clip(tex, 0, 255).astype(np.uint8)
+    offx, offy = 50.0, 30.0
+    cx, cy = W / 2.0, H / 2.0
+    a = ALT / (fx * gs)                       # texels per image pixel
+    winc = int(np.ceil(W * a)) + 2
+    winr = int(np.ceil(H * a)) + 2
+
+    def samp(n, slope, b, win):
+        s = slope * np.arange(n, dtype=np.float64) + b
+        start = int(np.floor(s.min()))
+        rel = s - start
+        m = np.zeros((n, win), np.float32)
+        i0 = np.floor(rel).astype(np.int64)
+        f = rel - i0
+        m[np.arange(n), i0] += 1.0 - f
+        m[np.arange(n), i0 + 1] += f
+        return torch.from_numpy(m).to(device), start
+
+    texd = torch.from_numpy(tex).to(device).to(torch.float32)
+    rmat, r0 = samp(H, -a, (120.0 + offy) / gs + a * cy, winr)
+    frames, poses = [], []
+    for i in range(K):
+        x = 90.0 + STEP_M * i
+        cmat, c0 = samp(W, a, (x + offx) / gs - a * cx, winc)
+        win = texd[r0:r0 + winr, c0:c0 + winc]
+        rows = torch.einsum("ok,khc->ohc", rmat, win)
+        out = torch.einsum("pl,hlc->hpc", cmat, rows)
+        frames.append(out.round().clamp(0, 255).to(torch.uint8))
+        poses.append([x, 120.0, ALT, 1.0, 0.0, 0.0, 0.0])
+    return torch.stack(frames), np.asarray(poses, np.float32)
+
+
+def strip_geometry(H: int, W: int, fx: float, poses):
+    """bench.py:181-191: canvas ground resolution, patch and canvas tiles
+    and the canvas origin for a strip flown at ALT."""
+    ele = 256
+    lp = (2 * (0.5 * ALT * np.hypot(W / fx, H / fx)) / np.hypot(W, H)) / 0.5
+    footprint_px = int(np.hypot(W, H) * 0.5 / 1.0)
+    patch_tiles = int(np.ceil(footprint_px / ele)) + 1
+    span_m = max(poses[:, 0].max() - poses[:, 0].min(),
+                 poses[:, 1].max() - poses[:, 1].min())
+    canvas_tiles = patch_tiles + int(np.ceil(span_m / (ele * lp))) + 2
+    patch_px = patch_tiles * ele
+    min_xy = np.array([90.0 - 0.5 * patch_px * lp,
+                       120.0 - 0.5 * patch_px * lp])
+    return lp, patch_tiles, canvas_tiles, min_xy
+
+
+def make_fastvo(H, W, fx, poses, n_features, n_levels, bands, device):
+    """A port FastVO with bench.py's camera and canvas geometry."""
+    from pislamfusion_tpu_torch import Camera, FastVO
+    lp, patch_tiles, canvas_tiles, min_xy = strip_geometry(H, W, fx, poses)
+    cam = Camera(W, H, fx, fx, W / 2.0, H / 2.0)
+    return FastVO(cam, min_xy, canvas_tiles, lp, bands=bands,
+                  n_features=n_features, n_levels=n_levels,
+                  window_radius=60.0, patch_tiles=patch_tiles,
+                  device=device)
+
+
+# ---------------------------------------------------------------------------
+# timing and bounds
+# ---------------------------------------------------------------------------
+
+def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    """Mean device time of fn() over `reps` back-to-back calls, from CUDA
+    events after `warm` untimed calls."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def bound_ms(nbytes: float, ops: float, ops_per_s: float):
+    """(least time in ms, "bytes" or "operations") for moving `nbytes`
+    through HBM and doing `ops` at `ops_per_s`."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / ops_per_s * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def _row(name, source, replaces, err, ms, plain, bound, library):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": library}
+
+
+# ---------------------------------------------------------------------------
+# phase 1: each kernel against its plain version at the main path's shapes
+# ---------------------------------------------------------------------------
+
+def check_flatpyr(gray, params):
+    import torch
+    from pislamfusion_tpu_torch.ops.features import flatpyr
+    H, W = gray.shape
+    L, sf, cell = params.n_levels, params.scale_factor, params.cell
+    if not flatpyr.flat_pyramid_available(H, W, L, sf, cell):
+        raise AssertionError(f"K1 does not take {H}x{W} / {L} levels")
+    ker = flatpyr.build_flat_pyramid(gray, L, sf, cell)
+    pln = flatpyr.build_flat_pyramid_plain(gray, L, sf, cell)
+    torch.cuda.synchronize()
+    d = (ker - pln).abs()
+    frac = float((d <= 1e-3).to(torch.float64).mean())
+    err = float(d.max())
+    print(f"K1 flatpyr   {H}x{W} L={L}: packed {tuple(ker.shape)}, "
+          f"max |kernel - plain| {err:.3e}, within 1e-3: {frac:.6%} "
+          "(bound: >= 99.99% within 1e-3, max <= 1.0: a different f32 "
+          "summation order can flip t1's bf16 rounding by one ulp)")
+    if not (frac >= 0.9999 and err <= 1.0):
+        raise AssertionError("K1 disagrees with its plain version")
+    ms = cuda_ms(lambda: flatpyr.build_flat_pyramid(gray, L, sf, cell))
+    plain = cuda_ms(lambda: flatpyr.build_flat_pyramid_plain(
+        gray, L, sf, cell), reps=5)
+    # library yardstick: the same function as dense bf16 cuBLAS products,
+    # two torch.matmul calls per level
+    t = flatpyr.flat_tables(H, W, L, sf, cell)
+    mats = [(torch.from_numpy(mr).to(gray.device, torch.bfloat16),
+             torch.from_numpy(mc).to(gray.device, torch.bfloat16).T)
+            for mr, mc in t.mats16]
+    g16 = gray.to(torch.bfloat16)
+    library = cuda_ms(lambda: [torch.matmul(torch.matmul(mr, g16), mcT)
+                               for mr, mcT in mats], reps=5)
+    plan = t.plan
+    nbytes = (H * W * 4 + plan.total_rows * plan.wp * 4
+              + t.row_w.nbytes + t.row_start.nbytes * 3 + t.col_w.nbytes
+              + t.col_start.nbytes * 2)
+    ops = 2.0 * (float(t.row_len.sum()) * W + sum(
+        float(t.col_len[lv].sum()) * br
+        for lv, br in enumerate(plan.block_rows[1:])))
+    return ker, _row("flatpyr", "pislamfusion_tpu_torch/csrc/flatpyr.cu",
+                     "pislamfusion_tpu/ops/features/flatpyr_pallas.py:227",
+                     err, ms, plain, bound_ms(nbytes, ops, BF16_OPS_PER_S),
+                     library)
+
+
+def check_patchgather(packed, pxy, radius):
+    import torch
+    from pislamfusion_tpu_torch.ops.features import patchgather as pg
+    ker = pg.gather_patches(packed, pxy, radius)
+    pln = pg.gather_patches_plain(packed, pxy, radius)
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(ker, pln))
+    err = float((ker - pln).abs().max())
+    print(f"K2 patchgather {pxy.shape[0]} centers r={radius} from "
+          f"{tuple(packed.shape)}: bit-exact {exact}, max diff {err:.3e} "
+          "(bound: exact)")
+    if not exact:
+        raise AssertionError("K2 disagrees with its plain version")
+    ms = cuda_ms(lambda: pg.gather_patches(packed, pxy, radius))
+    plain = cuda_ms(lambda: pg.gather_patches_plain(packed, pxy, radius))
+    # bytes: the distinct source pixels the patches cover, the centers,
+    # and the patches
+    G = 2 * radius + 1
+    ar = torch.arange(G, device=packed.device)
+    xy = pxy.to(torch.int64)
+    iy = (xy[:, 1:2] - radius + ar).clamp(0, packed.shape[0] - 1)
+    ix = (xy[:, 0:1] - radius + ar).clamp(0, packed.shape[1] - 1)
+    touched = torch.zeros(packed.shape, dtype=torch.bool,
+                          device=packed.device)
+    touched[iy[:, :, None], ix[:, None, :]] = True
+    nbytes = (int(touched.sum()) * 4 + pxy.numel() * 4
+              + ker.numel() * 4)
+    return _row("patchgather", "pislamfusion_tpu_torch/csrc/patchgather.cu",
+                "pislamfusion_tpu/ops/features/patchgather.py:148", err, ms,
+                plain, bound_ms(nbytes, 0.0, FP32_OPS_PER_S), None)
+
+
+def check_shearwarp(src, homs, patch_hw):
+    """K3 on each (label, homography) of `homs`: kernel vs plain."""
+    import torch
+    import torch.nn.functional as F
+    from pislamfusion_tpu_torch.ops import image as im
+    from pislamfusion_tpu_torch.ops import shearwarp as sw
+    errs, times = [], []
+    for label, h in homs:
+        out, live, fit = sw.warp_patch(src, h, patch_hw)
+        ref, live_p, _ = sw.warp_patch_plain(src, h, patch_hw)
+        torch.cuda.synchronize()
+        tr = bool(sw._choose_transpose(h))
+        if not torch.equal(live, live_p):
+            raise AssertionError(f"K3 {label}: live tiles differ")
+        err = float((out - ref).abs().max())
+        dead = ~torch.repeat_interleave(torch.repeat_interleave(
+            live, sw.TILE, 0), sw.TILE, 1)
+        dead_max = float(out[dead].abs().max()) if bool(dead.any()) else 0.0
+        print(f"K3 shearwarp {label}: {tuple(src.shape)} -> "
+              f"{patch_hw + (src.shape[2],)}, transposed {tr}, live "
+              f"{int(live.sum())}/{live.numel()}, fit err {float(fit):.3f}"
+              f" px, max |kernel - plain| {err:.3e} (bound 1e-3), dead "
+              f"tiles max {dead_max}")
+        if err > 1e-3 or dead_max != 0.0:
+            raise AssertionError(f"K3 {label} disagrees with its plain "
+                                 "version")
+        errs.append(err)
+        tr_t, prm, win = sw._params(src, h, patch_hw, sw.TILE, 2.2)
+        times.append((
+            cuda_ms(lambda: sw.launch_kernel(src, tr_t, prm, patch_hw,
+                                             sw.TILE, win)),
+            cuda_ms(lambda: sw.warp_patch_plain(src, h, patch_hw), reps=5)))
+    # library yardstick: torch's bilinear grid_sample of the same source
+    # at the same output size (a different function: projective bilinear
+    # sampling, not the two-pass resample)
+    grid = im.homography_grid(homs[0][1], patch_hw)
+    Hs, Ws = src.shape[0], src.shape[1]
+    gn = torch.stack([grid[..., 0] * 2 / (Ws - 1) - 1,
+                      grid[..., 1] * 2 / (Hs - 1) - 1], -1)[None]
+    src_nchw = src.permute(2, 0, 1)[None].contiguous()
+    library = cuda_ms(lambda: F.grid_sample(src_nchw, gn, mode="bilinear",
+                                            align_corners=True))
+    ph, pw = patch_hw
+    C = src.shape[2]
+    nbytes = src.numel() * 4 + 9 * 4 + ph * pw * C * 4
+    ops = ph * pw * (C * 24.0 + 40.0)
+    return _row("shearwarp", "pislamfusion_tpu_torch/csrc/shearwarp.cu",
+                "pislamfusion_tpu/ops/shearwarp.py:505", max(errs),
+                times[0][0], times[0][1],
+                bound_ms(nbytes, ops, FP32_OPS_PER_S), library)
+
+
+def rotate_about_center(h, theta_deg, hw):
+    """h composed with a rotation of the patch by theta about its center."""
+    import torch
+    th = math.radians(theta_deg)
+    cy, cx = hw[0] / 2.0, hw[1] / 2.0
+    c, s = math.cos(th), math.sin(th)
+    R = torch.tensor([[c, -s, cx - c * cx + s * cy],
+                      [s, c, cy - s * cx - c * cy],
+                      [0.0, 0.0, 1.0]], dtype=h.dtype, device=h.device)
+    return h @ R
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the main path at full width, timed and broken down by stage
+# ---------------------------------------------------------------------------
+
+def stage_breakdown(vo, frames, pose0):
+    """Mean device ms per frame of each stage of FastVO's step (pyramid,
+    FAST+NMS+select, descriptor tail, match+LM, feed), from the CUDA events
+    that one more pass of `process_tensor` records as each stage is
+    enqueued."""
+    import torch
+    carry = vo.initial_carry(frames[0], pose0)
+    evs = []
+
+    def mark(stage):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        evs.append((stage, e))
+
+    mark("start")
+    vo.process_tensor(frames, pose0, carry, mark)
+    torch.cuda.synchronize()
+    ms = {}
+    for (_, e0), (stage, e1) in zip(evs, evs[1:]):
+        ms[stage] = ms.get(stage, 0.0) + e0.elapsed_time(e1)
+    return {k: v / frames.shape[0] for k, v in ms.items()}
+
+
+def profile_frames(vo, frames, pose0):
+    """One more pass under torch.profiler: the device's busy share over the
+    pass (the union of its kernels' intervals over the span from the first
+    kernel's start to the last one's end), device time by kernel name and
+    host time by operator."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        vo.process(frames, pose0)
+        torch.cuda.synchronize()
+    dev, host = {}, {}
+    spans = []
+    for e in prof.events():
+        us = e.time_range.end - e.time_range.start
+        if e.device_type.name == "CUDA":
+            dev[e.name] = dev.get(e.name, 0.0) + us
+            spans.append((e.time_range.start, e.time_range.end))
+        else:
+            host[e.name] = host.get(e.name, 0.0) + e.self_cpu_time_total
+    spans.sort()
+    busy, end = 0.0, -math.inf
+    for s, t in spans:
+        if t > end:
+            busy += t - max(s, end)
+            end = t
+    window = spans[-1][1] - spans[0][0]
+    k = frames.shape[0]
+    print(f"profile of {k} frames: device busy {busy / 1e3:.3f} ms of a "
+          f"{window / 1e3:.3f} ms window ({busy / window:.1%}), "
+          f"{len(spans)} device activities ({len(spans) / k:.0f} a frame)")
+    for title, d in (("device ms/frame by kernel", dev),
+                     ("host self ms/frame by op", host)):
+        print(title + ":")
+        for name, us in sorted(d.items(), key=lambda kv: -kv[1])[:15]:
+            print(f"  {us / 1e3 / k:9.3f}  {name[:100]}")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs the port on a CUDA GPU only", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pislamfusion_tpu_torch import _build
+    from pislamfusion_tpu_torch.models import fastvo as fv
+    from pislamfusion_tpu_torch.ops import image as im
+    from pislamfusion_tpu_torch.ops import shearwarp as sw
+    from pislamfusion_tpu_torch.ops.features import flatpyr, orb
+    from pislamfusion_tpu_torch.ops.features import patchgather as pg
+
+    # fp32 products in full fp32 (the reference's HIGHEST): TF32 off for
+    # matmuls and convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("torch.backends.cuda.matmul.allow_tf32 = False, "
+          "torch.backends.cudnn.allow_tf32 = False")
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} "
+          f"x{torch.cuda.device_count()}")
+
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    print(f"built {', '.join(_build.KERNELS)} in "
+          f"{time.perf_counter() - t0:.1f} s (parallel nvcc, sm_90a)")
+    for name, log in logs.items():
+        for ln in log.splitlines():
+            if "registers" in ln or "spill" in ln:
+                print(f"  {name}: {ln.strip()}")
+
+    # ---- the main path's inputs: bench.py's 1080p strip
+    H, W, fx, K = 1080, 1920, 1200.0, 24
+    t0 = time.perf_counter()
+    frames, poses = render_strip(K, H, W, fx, 0.12, 6144, dev)
+    torch.cuda.synchronize()
+    print(f"rendered {K} frames {W}x{H} in {time.perf_counter() - t0:.1f} s")
+    vo = make_fastvo(H, W, fx, poses, 1000, 8, 5, dev)
+    params = vo.params
+    pose0 = torch.as_tensor(poses[0]).to(dev)
+
+    # ---- phase 1: kernels against their plain versions
+    gray = im.rgb_to_gray(frames[0].to(torch.float32))
+    packed, k1 = check_flatpyr(gray, params)
+    plan = orb._flat_plan(H, W, params.n_levels, params.scale_factor,
+                          params.cell)
+    views = [packed[b + plan.cell:b + plan.cell + lh,
+                    plan.pad_left:plan.pad_left + lw]
+             for b, (lh, lw) in zip(plan.bases, plan.shapes)]
+    picks = orb.select_levels(views, params)
+    pxy = torch.cat([xy + torch.tensor(
+        [[plan.pad_left, b + plan.cell]], dtype=torch.int32, device=dev)
+        for (xy, _, _), b in zip(picks, plan.bases)])
+    k2 = check_patchgather(packed, pxy, orb._GATHER_R)
+    src = im.pyr_down(frames[0].to(torch.float32))
+    _, Hc2i = vo._patch_homography(pose0)
+    half = (vo.patch_tiles * fv.ELE // 2,) * 2
+    s_half = torch.diag(torch.tensor([0.5, 0.5, 1.0], device=dev))
+    s_two = torch.diag(torch.tensor([2.0, 2.0, 1.0], device=dev))
+    h_hs = s_half @ Hc2i @ s_two
+    h_rot = rotate_about_center(h_hs, 100.0, half)
+    if not (not bool(sw._choose_transpose(h_hs))
+            and bool(sw._choose_transpose(h_rot))):
+        raise AssertionError("K3 check: expected one plain and one "
+                             "transposed homography")
+    k3 = check_shearwarp(src, [("survey", h_hs), ("rotated 100 deg", h_rot)],
+                         half)
+    rows = [k1, k2, k3]
+    wrappers = [flatpyr.build_flat_pyramid, pg.gather_patches,
+                sw.warp_patch]
+
+    # ---- phase 2: the main path, through FastVO.process
+    vo.process(frames, poses[0])                 # warm-up pass
+    vo = make_fastvo(H, W, fx, poses, 1000, 8, 5, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers:
+        fn.launches = 0
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    ev0.record()
+    est, n_match = vo.process(frames, poses[0])
+    ev1.record()
+    ev1.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [fn.launches for fn in wrappers]
+    dev_ms = ev0.elapsed_time(ev1)
+    peak = torch.cuda.max_memory_allocated()
+    for row, n in zip(rows, launches):
+        row["launches"] = n
+    print(f"FastVO.process {K} frames {W}x{H} (ORB-{params.n_features}, "
+          f"{params.n_levels} levels, {vo.bands} bands, canvas "
+          f"{vo.canvas_tiles} tiles, patch {vo.patch_tiles} tiles): "
+          f"{K / (dev_ms / 1e3):.2f} frames/s, {dev_ms / K:.3f} ms/frame "
+          f"(CUDA events; host clock {wall * 1e3 / K:.3f} ms/frame)")
+    print(f"peak device memory {peak / 2**20:.1f} MiB")
+    print(f"n_match {n_match.tolist()}")
+    drift = float(np.linalg.norm(est[-1, :3] - poses[-1, :3]))
+    print(f"VO drift over {K} frames: {drift:.3f} m")
+    print("launches in that run: " + ", ".join(
+        f"{r['name']} {n}" for r, n in zip(rows, launches)))
+    if not (n_match[1:] > 50).all():
+        raise AssertionError(f"VO lost track: {n_match}")
+    if not np.isfinite(est).all():
+        raise AssertionError("non-finite poses")
+    if min(launches) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    img, covered = vo.blended()
+    if not (np.isfinite(img).all() and covered.mean() > 0.05):
+        raise AssertionError("blended mosaic is not finite or is empty")
+    print(f"mosaic {img.shape}, covered {covered.mean():.3f}")
+    stages = stage_breakdown(vo, frames, pose0)
+    print("per-stage ms/frame: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stages.items()))
+    profile_frames(vo, frames[:8], poses[0])
+
+    # ---- phase 3: the card against the port's CPU run on a small strip
+    h2, w2, fx2 = 600, 640, 600.0
+    fr2, p2 = render_strip(3, h2, w2, fx2, 0.24, 1024, "cpu")
+    runs = []
+    for d in ("cpu", dev):
+        v = make_fastvo(h2, w2, fx2, p2, 256, 4, 3, d)
+        e, n = v.process(fr2, p2[0])
+        runs.append((e, n) + v.blended())
+    (e_c, n_c, i_c, c_c), (e_g, n_g, i_g, c_g) = runs
+    both = c_c & c_g
+    mse = float(((i_c - i_g)[both] ** 2).mean())
+    psnr = 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
+    dt = float(np.abs(e_c[:, :3] - e_g[:, :3]).max())
+    print(f"small strip {w2}x{h2}, 3 frames, card vs CPU: n_match "
+          f"{n_g.tolist()} vs {n_c.tolist()}, max |dt| {dt:.2e} m, mosaic "
+          f"PSNR {psnr:.1f} dB, coverage agreement {(c_c == c_g).mean():.5f}")
+    if not (np.abs(n_c - n_g).max() <= 3 and dt <= 5e-3 and psnr >= 40.0):
+        raise AssertionError("the card's run disagrees with the CPU run")
+
+    print(card)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

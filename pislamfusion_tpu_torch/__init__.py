@@ -1,0 +1,17 @@
+"""PyTorch + CUDA port of pislamfusion_tpu for NVIDIA Hopper (sm_90a).
+
+The JAX package (`pislamfusion_tpu`) is the reference; this package mirrors
+its layout module by module and imports nothing of it (nor of JAX). Every
+Pallas TPU kernel on a ported path is a hand-written CUDA kernel here
+(`csrc/`), built at first use by `_build.py`, with a plain PyTorch version
+of the same function beside it. A wrapper takes the plain version only
+for a tensor on the CPU; for a CUDA tensor it launches its kernel or
+raises.
+
+Ported so far: the FastVO ORB track+fuse path (`models/fastvo.py`).
+"""
+from .core.camera import Camera
+from .core.device import resolve_device
+from .models.fastvo import FastVO
+
+__all__ = ["Camera", "FastVO", "resolve_device"]

@@ -1,0 +1,20 @@
+"""Pinhole camera: the intrinsics FastVO reads.
+
+Port of the fields of pislamfusion_tpu/core/camera.py:34-41 (the `Camera`
+base class, GSLAM/GSLAM/core/Camera.h PinHole). The ATAN, OpenCV and
+OCAM models and the camera's projection methods are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class Camera:
+    """Pinhole camera; width/height/intrinsics are Python scalars."""
+    width: int
+    height: int
+    fx: float = 1.0
+    fy: float = 1.0
+    cx: float = 0.0
+    cy: float = 0.0
