@@ -8,17 +8,24 @@ NVIDIA H100 and the CUDA toolkit:
 It builds the port's CUDA kernels from `pislamfusion_tpu_torch/csrc/`
 (one `nvcc` per source, all started together), then:
 
-1. holds each kernel against its plain PyTorch version on the card at the
-   shapes of the main path, and times both;
-2. drives the main path, `FastVO.process`, at 1920x1080 (ORB-1000, 8
-   levels, 5 bands, 24 frames of bench.py's synthetic survey strip), with
-   every kernel's launch count set to 0 just before and read just after;
-   checks tracking as bench.py does, times the run with CUDA events,
-   breaks one more pass down by stage, and runs 8 frames under
-   torch.profiler for the device's busy share, device time by kernel and
-   host time by operator;
-3. checks the card's run against the port's plain CPU run on a small
-   strip (600x640), and prints the kernel table and the result line.
+1. holds each kernel (K1 flat pyramid, K2 patch gather, K3 shear warp, K5
+   banded stack, K6 bilinear grid) against its plain PyTorch version on
+   the card at the shapes of the main paths, and times the kernel, its
+   plain version and one library call that computes the same function
+   where there is one (each the device time of a call, from 20 calls
+   captured in one CUDA graph), beside its bound;
+2. drives both main paths through `FastVO.process` at 1920x1080 over 24
+   frames of bench.py's synthetic survey strip (window radius 60, 5
+   bands): ORB-1000 with 8 levels, then SIFT-1000 (4 octaves, 3 scales an
+   octave). For each, every kernel's launch count is set to 0 just before
+   the timed run and read just after; tracking is checked as bench.py
+   does; the run is timed with CUDA events after a warm-up pass; one more
+   pass is broken down by stage; 8 frames run under torch.profiler for
+   the device's busy share, device time by kernel and host time by
+   operator;
+3. checks the card's runs against the port's plain CPU runs on a small
+   strip (600x640, 3 frames, 256 features, 3 bands), ORB and SIFT, and
+   prints the kernel table and the result line.
 
 Every failure raises and ends the script with a nonzero exit code. With no
 CUDA device it exits nonzero before printing any result.
@@ -112,7 +119,8 @@ def strip_geometry(H: int, W: int, fx: float, poses):
     return lp, patch_tiles, canvas_tiles, min_xy
 
 
-def make_fastvo(H, W, fx, poses, n_features, n_levels, bands, device):
+def make_fastvo(H, W, fx, poses, n_features, n_levels, bands, device,
+                detector="orb"):
     """A port FastVO with bench.py's camera and canvas geometry."""
     from pislamfusion_tpu_torch import Camera, FastVO
     lp, patch_tiles, canvas_tiles, min_xy = strip_geometry(H, W, fx, poses)
@@ -120,28 +128,49 @@ def make_fastvo(H, W, fx, poses, n_features, n_levels, bands, device):
     return FastVO(cam, min_xy, canvas_tiles, lp, bands=bands,
                   n_features=n_features, n_levels=n_levels,
                   window_radius=60.0, patch_tiles=patch_tiles,
-                  device=device)
+                  detector=detector, device=device)
 
 
 # ---------------------------------------------------------------------------
 # timing and bounds
 # ---------------------------------------------------------------------------
 
-def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
-    """Mean device time of fn() over `reps` back-to-back calls, from CUDA
-    events after `warm` untimed calls."""
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean device time of fn() from `reps` calls captured in one CUDA
+    graph and replayed once (CUDA events around the replay): the kernels'
+    own time, without the host's time to issue them. fn must launch on
+    the current stream and not synchronise."""
     import torch
-    for _ in range(warm):
-        fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
-    for _ in range(reps):
-        fn()
+    graph.replay()
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def timed(label: str, kernel, plain, library=None, reps: int = 20):
+    """graph_ms of the kernel's wrapper, its plain version and the library
+    yardstick (None where there is none), printed. Returns the three."""
+    ms = [None if fn is None else graph_ms(fn, reps)
+          for fn in (kernel, plain, library)]
+    lib = "none" if ms[2] is None else f"{ms[2]:.4f} ms"
+    print(f"  {label}: kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms, library "
+          f"{lib} (device time a call, {reps} calls in one CUDA graph)")
+    return ms
 
 
 def bound_ms(nbytes: float, ops: float, ops_per_s: float):
@@ -182,9 +211,6 @@ def check_flatpyr(gray, params):
           "summation order can flip t1's bf16 rounding by one ulp)")
     if not (frac >= 0.9999 and err <= 1.0):
         raise AssertionError("K1 disagrees with its plain version")
-    ms = cuda_ms(lambda: flatpyr.build_flat_pyramid(gray, L, sf, cell))
-    plain = cuda_ms(lambda: flatpyr.build_flat_pyramid_plain(
-        gray, L, sf, cell), reps=5)
     # library yardstick: the same function as dense bf16 cuBLAS products,
     # two torch.matmul calls per level
     t = flatpyr.flat_tables(H, W, L, sf, cell)
@@ -192,8 +218,11 @@ def check_flatpyr(gray, params):
              torch.from_numpy(mc).to(gray.device, torch.bfloat16).T)
             for mr, mc in t.mats16]
     g16 = gray.to(torch.bfloat16)
-    library = cuda_ms(lambda: [torch.matmul(torch.matmul(mr, g16), mcT)
-                               for mr, mcT in mats], reps=5)
+    ms, plain, library = timed(
+        "K1", lambda: flatpyr.build_flat_pyramid(gray, L, sf, cell),
+        lambda: flatpyr.build_flat_pyramid_plain(gray, L, sf, cell),
+        lambda: [torch.matmul(torch.matmul(mr, g16), mcT)
+                 for mr, mcT in mats])
     plan = t.plan
     nbytes = (H * W * 4 + plan.total_rows * plan.wp * 4
               + t.row_w.nbytes + t.row_start.nbytes * 3 + t.col_w.nbytes
@@ -220,8 +249,9 @@ def check_patchgather(packed, pxy, radius):
           "(bound: exact)")
     if not exact:
         raise AssertionError("K2 disagrees with its plain version")
-    ms = cuda_ms(lambda: pg.gather_patches(packed, pxy, radius))
-    plain = cuda_ms(lambda: pg.gather_patches_plain(packed, pxy, radius))
+    ms, plain, _ = timed(
+        "K2", lambda: pg.gather_patches(packed, pxy, radius),
+        lambda: pg.gather_patches_plain(packed, pxy, radius))
     # bytes: the distinct source pixels the patches cover, the centers,
     # and the patches
     G = 2 * radius + 1
@@ -267,10 +297,10 @@ def check_shearwarp(src, homs, patch_hw):
                                  "version")
         errs.append(err)
         tr_t, prm, win = sw._params(src, h, patch_hw, sw.TILE, 2.2)
-        times.append((
-            cuda_ms(lambda: sw.launch_kernel(src, tr_t, prm, patch_hw,
-                                             sw.TILE, win)),
-            cuda_ms(lambda: sw.warp_patch_plain(src, h, patch_hw), reps=5)))
+        times.append(timed(
+            f"K3 {label}", lambda: sw.launch_kernel(
+                src, tr_t, prm, patch_hw, sw.TILE, win),
+            lambda: sw.warp_patch_plain(src, h, patch_hw)))
     # library yardstick: torch's bilinear grid_sample of the same source
     # at the same output size (a different function: projective bilinear
     # sampling, not the two-pass resample)
@@ -279,8 +309,9 @@ def check_shearwarp(src, homs, patch_hw):
     gn = torch.stack([grid[..., 0] * 2 / (Ws - 1) - 1,
                       grid[..., 1] * 2 / (Hs - 1) - 1], -1)[None]
     src_nchw = src.permute(2, 0, 1)[None].contiguous()
-    library = cuda_ms(lambda: F.grid_sample(src_nchw, gn, mode="bilinear",
-                                            align_corners=True))
+    library = graph_ms(lambda: F.grid_sample(src_nchw, gn, mode="bilinear",
+                                             align_corners=True))
+    print(f"  K3 library (grid_sample): {library:.4f} ms")
     ph, pw = patch_hw
     C = src.shape[2]
     nbytes = src.numel() * 4 + 9 * 4 + ph * pw * C * 4
@@ -289,6 +320,112 @@ def check_shearwarp(src, homs, patch_hw):
                 "pislamfusion_tpu/ops/shearwarp.py:505", max(errs),
                 times[0][0], times[0][1],
                 bound_ms(nbytes, ops, FP32_OPS_PER_S), library)
+
+
+def check_bandedstack(xs, params):
+    """K5 on each octave input x [h, w] (0..1) of `xs`: kernel vs plain;
+    timed on the first."""
+    import torch
+    from pislamfusion_tpu_torch.ops import stencil
+    from pislamfusion_tpu_torch.ops.features import sift
+    errs = []
+    for x in xs:
+        h, w = x.shape
+        tabs = sift._stack_tables(h, w, params)
+        if tabs is None:
+            raise AssertionError(f"K5 does not take {h}x{w}")
+        ker = stencil.banded_stack(x, tabs)
+        pln = stencil.banded_stack_plain(x, tabs)
+        torch.cuda.synchronize()
+        errs.append(float((ker - pln).abs().max()))
+        print(f"K5 bandedstack {h}x{w}, {tabs.scales} scales, half-widths "
+              f"{[int(n) // 2 for n in tabs.row_len.max(1)]}: max |kernel - "
+              f"plain| {errs[-1]:.3e} (bound 1e-5 on the 0..1 scale; f32 "
+              "sums in another order)")
+        if not errs[-1] <= 1e-5:
+            raise AssertionError(f"K5 {h}x{w} disagrees with its plain "
+                                 "version")
+    x = xs[0]
+    h, w = x.shape
+    tabs = sift._stack_tables(h, w, params)
+    # library yardstick: two dense f32 torch.matmul calls a scale (TF32 off)
+    mhs, mws = stencil._dense_on(tabs, x.device)
+    ms, plain, library = timed(
+        f"K5 {h}x{w}", lambda: stencil.banded_stack(x, tabs),
+        lambda: stencil.banded_stack_plain(x, tabs),
+        lambda: [torch.matmul(torch.matmul(mhs[p], x), mws[p].T)
+                 for p in range(tabs.scales)])
+    nbytes = (1 + tabs.scales) * h * w * 4 + sum(
+        a.nbytes for a in (tabs.row_start, tabs.row_len, tabs.row_w,
+                           tabs.col_start, tabs.col_len, tabs.col_w,
+                           tabs.tile_r0, tabs.tile_rn, tabs.tile_c0,
+                           tabs.tile_cn))
+    ops = 2.0 * (float(tabs.row_len.sum()) * w + float(tabs.col_len.sum())
+                 * h)
+    print(f"  K5 work: {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB")
+    return _row("bandedstack", "pislamfusion_tpu_torch/csrc/bandedstack.cu",
+                "pislamfusion_tpu/ops/stencil_pallas.py:338", max(errs), ms,
+                plain,
+                bound_ms(nbytes, ops, FP32_OPS_PER_S), library)
+
+
+def check_bilineargrid(grad, grids):
+    """K6 on the packed gradient image grad [Hp, W, 2] at each (label,
+    centers, rel) of `grids`: kernel vs plain; timed on the first."""
+    import torch
+    import torch.nn.functional as F
+    from pislamfusion_tpu_torch.ops.features import patchgather as pg
+    from pislamfusion_tpu_torch.ops.features import sift
+    R = sift.GRID_RADIUS
+    errs = []
+    for label, centers, rel in grids:
+        if not float(rel.abs().max()) < R:
+            raise AssertionError(f"K6 {label}: an offset reaches the radius")
+        ker = pg.bilinear_grid(grad, centers, rel, R)
+        pln = pg.bilinear_grid_plain(grad, centers, rel, R)
+        torch.cuda.synchronize()
+        errs.append(float((ker - pln).abs().max()))
+        print(f"K6 bilineargrid {label}: {tuple(grad.shape)}, "
+              f"{centers.shape[0]} keypoints x {rel.shape[2]} samples: max "
+              f"|kernel - plain| {errs[-1]:.3e} (bound 1e-4)")
+        if not errs[-1] <= 1e-4:
+            raise AssertionError(f"K6 {label} disagrees with its plain "
+                                 "version")
+    _, centers, rel = grids[0]
+    # library yardstick: grid_sample's zero-padded bilinear at the same
+    # points (align_corners: pixel centres at -1 and 1)
+    Hp, W, C = grad.shape
+    px = centers[:, 0:1].to(torch.float32) + rel[:, 0]
+    py = centers[:, 1:2].to(torch.float32) + rel[:, 1]
+    gn = torch.stack([px * (2.0 / (W - 1)) - 1.0,
+                      py * (2.0 / (Hp - 1)) - 1.0], -1)[None]
+    src = grad.permute(2, 0, 1)[None].contiguous()
+    ms, plain, library = timed(
+        "K6", lambda: pg.bilinear_grid(grad, centers, rel, R),
+        lambda: pg.bilinear_grid_plain(grad, centers, rel, R),
+        lambda: F.grid_sample(src, gn, mode="bilinear", padding_mode="zeros",
+                              align_corners=True))
+    # bytes: the in-image pixels the taps cover, the offsets, the centres
+    # and the samples
+    WH, _, WWpx, ya, xa, dy0, dx0 = pg._grid_geometry(centers, C, R)
+    iy = ya[:, None] + torch.floor(rel[:, 1] + dy0[:, None].to(
+        torch.float32)).clamp(0, WH - 2).to(torch.int64) - (R + 2)
+    ix = xa[:, None] + torch.floor(rel[:, 0] + dx0[:, None].to(
+        torch.float32)).clamp(0, WWpx - 2).to(torch.int64) - (R + 2)
+    touched = torch.zeros((Hp + 2, W + 2), dtype=torch.bool,
+                          device=grad.device)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            touched[(iy + dy).clamp(-1, Hp) + 1,
+                    (ix + dx).clamp(-1, W) + 1] = True
+    n_px = int(touched[1:-1, 1:-1].sum())
+    K, _, M = rel.shape
+    nbytes = n_px * C * 4 + (rel.numel() + centers.numel() + K * M * C) * 4
+    ops = K * M * (8.0 + 9.0 * C)
+    return _row("bilineargrid", "pislamfusion_tpu_torch/csrc/bilineargrid.cu",
+                "pislamfusion_tpu/ops/features/patchgather.py:282",
+                max(errs), ms, plain, bound_ms(nbytes, ops, FP32_OPS_PER_S),
+                library)
 
 
 def rotate_about_center(h, theta_deg, hw):
@@ -308,8 +445,10 @@ def rotate_about_center(h, theta_deg, hw):
 # ---------------------------------------------------------------------------
 
 def stage_breakdown(vo, frames, pose0):
-    """Mean device ms per frame of each stage of FastVO's step (pyramid,
-    FAST+NMS+select, descriptor tail, match+LM, feed), from the CUDA events
+    """Mean device ms per frame of each stage of FastVO's step (ORB:
+    pyramid, FAST+NMS+select, descriptor tail; SIFT: octave stacks,
+    extrema+select, orientation+descriptor; then match+LM and feed), from
+    the CUDA events
     that one more pass of `process_tensor` records as each stage is
     enqueued."""
     import torch
@@ -379,7 +518,8 @@ def main() -> int:
     from pislamfusion_tpu_torch.models import fastvo as fv
     from pislamfusion_tpu_torch.ops import image as im
     from pislamfusion_tpu_torch.ops import shearwarp as sw
-    from pislamfusion_tpu_torch.ops.features import flatpyr, orb
+    from pislamfusion_tpu_torch.ops import stencil
+    from pislamfusion_tpu_torch.ops.features import flatpyr, orb, sift
     from pislamfusion_tpu_torch.ops.features import patchgather as pg
 
     # fp32 products in full fp32 (the reference's HIGHEST): TF32 off for
@@ -406,7 +546,7 @@ def main() -> int:
             if "registers" in ln or "spill" in ln:
                 print(f"  {name}: {ln.strip()}")
 
-    # ---- the main path's inputs: bench.py's 1080p strip
+    # ---- the main paths' inputs: bench.py's 1080p strip
     H, W, fx, K = 1080, 1920, 1200.0, 24
     t0 = time.perf_counter()
     frames, poses = render_strip(K, H, W, fx, 0.12, 6144, dev)
@@ -442,16 +582,67 @@ def main() -> int:
                              "transposed homography")
     k3 = check_shearwarp(src, [("survey", h_hs), ("rotated 100 deg", h_rot)],
                          half)
-    rows = [k1, k2, k3]
-    wrappers = [flatpyr.build_flat_pyramid, pg.gather_patches,
-                sw.warp_patch]
+    # K5 and K6 on frame 0's SIFT detection: octave 0's input, and the
+    # packed gradient image with the orientation and descriptor grids
+    sp = sift.SiftParams(n_features=1000)
+    stacks = sift.build_stacks(gray, sp)
+    # every octave input that takes K5 (at 1080p octaves 0-2)
+    k5 = check_bandedstack([s[0] for s in stacks if min(s.shape[1:]) >= 256
+                            and sift._stack_tables(*s.shape[1:], sp)
+                            is not None], sp)
+    grad, (cx, cy, sig, bounds), _ = sift.pack_gradients(
+        stacks, sift.select_octaves(stacks, sp), (H, W), sp)
+    angle = sift._orientations(grad, cx, cy, sig, sp, bounds)
+    grids = [(label, *sift._grid_points(cx, cy, a, sig, 16, r, bounds)[:2])
+             for label, a, r in (
+                 ("orientation grid", torch.zeros_like(cx), 4.5),
+                 ("descriptor grid", angle, 1.5 * sp.desc_grid / 2.0))]
+    k6 = check_bilineargrid(grad, grids)
+    rows = [k1, k2, k3, k5, k6]
+    wrappers = {"flatpyr": flatpyr.build_flat_pyramid,
+                "patchgather": pg.gather_patches, "shearwarp": sw.warp_patch,
+                "bandedstack": stencil.banded_stack,
+                "bilineargrid": pg.bilinear_grid}
 
-    # ---- phase 2: the main path, through FastVO.process
+    # ---- phase 2: both main paths, through FastVO.process
+    orb_launches = run_main_path(
+        "ORB", lambda: make_fastvo(H, W, fx, poses, 1000, 8, 5, dev),
+        frames, poses, wrappers, ("flatpyr", "patchgather", "shearwarp"))
+    sift_launches = run_main_path(
+        "SIFT", lambda: make_fastvo(H, W, fx, poses, 1000, 8, 5, dev,
+                                    "sift"),
+        frames, poses, wrappers, ("shearwarp", "bandedstack",
+                                  "bilineargrid"))
+    for row in rows:
+        # each kernel's count from the path it was ported for
+        path = orb_launches if row["name"] in (
+            "flatpyr", "patchgather", "shearwarp") else sift_launches
+        row["launches"] = path[row["name"]]
+
+    # ---- phase 3: the card against the port's CPU run on a small strip
+    for detector in ("orb", "sift"):
+        card_vs_cpu(detector, dev)
+
+    print(card)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_main_path(label, make, frames, poses, wrappers, path_kernels):
+    """A warm-up pass, then a fresh FastVO timed over the frames with every
+    launch count of `wrappers` ({kernel: wrapper}) set to 0 just before
+    and read just after; tracking gates, a per-stage pass and a profiled
+    pass. Returns {kernel: launches}."""
+    import torch
+    vo = make()
     vo.process(frames, poses[0])                 # warm-up pass
-    vo = make_fastvo(H, W, fx, poses, 1000, 8, 5, dev)
+    vo = make()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in wrappers:
+    for fn in wrappers.values():
         fn.launches = 0
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
@@ -461,43 +652,53 @@ def main() -> int:
     ev1.record()
     ev1.synchronize()
     wall = time.perf_counter() - t0
-    launches = [fn.launches for fn in wrappers]
+    launches = {k: fn.launches for k, fn in wrappers.items()}
     dev_ms = ev0.elapsed_time(ev1)
     peak = torch.cuda.max_memory_allocated()
-    for row, n in zip(rows, launches):
-        row["launches"] = n
-    print(f"FastVO.process {K} frames {W}x{H} (ORB-{params.n_features}, "
-          f"{params.n_levels} levels, {vo.bands} bands, canvas "
-          f"{vo.canvas_tiles} tiles, patch {vo.patch_tiles} tiles): "
-          f"{K / (dev_ms / 1e3):.2f} frames/s, {dev_ms / K:.3f} ms/frame "
-          f"(CUDA events; host clock {wall * 1e3 / K:.3f} ms/frame)")
-    print(f"peak device memory {peak / 2**20:.1f} MiB")
-    print(f"n_match {n_match.tolist()}")
+    K, H, W = frames.shape[:3]
+    p = vo.params
+    what = (f"ORB-{p.n_features}, {p.n_levels} levels" if label == "ORB"
+            else f"SIFT-{p.n_features}, {p.n_octaves} octaves, "
+            f"{p.scales_per_octave} scales")
+    print(f"{label} FastVO.process {K} frames {W}x{H} ({what}, {vo.bands} "
+          f"bands, canvas {vo.canvas_tiles} tiles, patch {vo.patch_tiles} "
+          f"tiles): {K / (dev_ms / 1e3):.2f} frames/s, {dev_ms / K:.3f} "
+          f"ms/frame (CUDA events; host clock {wall * 1e3 / K:.3f} "
+          "ms/frame)")
+    print(f"{label} peak device memory {peak / 2**20:.1f} MiB")
+    print(f"{label} n_match {n_match.tolist()}")
     drift = float(np.linalg.norm(est[-1, :3] - poses[-1, :3]))
-    print(f"VO drift over {K} frames: {drift:.3f} m")
-    print("launches in that run: " + ", ".join(
-        f"{r['name']} {n}" for r, n in zip(rows, launches)))
+    print(f"{label} VO drift over {K} frames: {drift:.3f} m")
+    print(f"{label} launches in that run: " + ", ".join(
+        f"{k} {n}" for k, n in launches.items()))
     if not (n_match[1:] > 50).all():
-        raise AssertionError(f"VO lost track: {n_match}")
+        raise AssertionError(f"{label}: VO lost track: {n_match}")
     if not np.isfinite(est).all():
-        raise AssertionError("non-finite poses")
-    if min(launches) <= 0:
-        raise AssertionError(f"a kernel was not launched: {launches}")
+        raise AssertionError(f"{label}: non-finite poses")
+    if min(launches[k] for k in path_kernels) <= 0:
+        raise AssertionError(f"{label}: a kernel of the path was not "
+                             f"launched: {launches}")
     img, covered = vo.blended()
     if not (np.isfinite(img).all() and covered.mean() > 0.05):
-        raise AssertionError("blended mosaic is not finite or is empty")
-    print(f"mosaic {img.shape}, covered {covered.mean():.3f}")
+        raise AssertionError(f"{label}: blended mosaic is not finite or is "
+                             "empty")
+    print(f"{label} mosaic {img.shape}, covered {covered.mean():.3f}")
+    pose0 = torch.as_tensor(poses[0]).to(frames.device)
     stages = stage_breakdown(vo, frames, pose0)
-    print("per-stage ms/frame: " + ", ".join(
+    print(f"{label} per-stage ms/frame: " + ", ".join(
         f"{k} {v:.3f}" for k, v in stages.items()))
     profile_frames(vo, frames[:8], poses[0])
+    return launches
 
-    # ---- phase 3: the card against the port's CPU run on a small strip
+
+def card_vs_cpu(detector, dev):
+    """The port on the card against its plain CPU run: 600x640, 3 frames,
+    256 features, 3 bands (ORB: 4 levels)."""
     h2, w2, fx2 = 600, 640, 600.0
     fr2, p2 = render_strip(3, h2, w2, fx2, 0.24, 1024, "cpu")
     runs = []
     for d in ("cpu", dev):
-        v = make_fastvo(h2, w2, fx2, p2, 256, 4, 3, d)
+        v = make_fastvo(h2, w2, fx2, p2, 256, 4, 3, d, detector)
         e, n = v.process(fr2, p2[0])
         runs.append((e, n) + v.blended())
     (e_c, n_c, i_c, c_c), (e_g, n_g, i_g, c_g) = runs
@@ -505,18 +706,13 @@ def main() -> int:
     mse = float(((i_c - i_g)[both] ** 2).mean())
     psnr = 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
     dt = float(np.abs(e_c[:, :3] - e_g[:, :3]).max())
-    print(f"small strip {w2}x{h2}, 3 frames, card vs CPU: n_match "
-          f"{n_g.tolist()} vs {n_c.tolist()}, max |dt| {dt:.2e} m, mosaic "
-          f"PSNR {psnr:.1f} dB, coverage agreement {(c_c == c_g).mean():.5f}")
+    print(f"{detector.upper()} small strip {w2}x{h2}, 3 frames, card vs CPU: "
+          f"n_match {n_g.tolist()} vs {n_c.tolist()}, max |dt| {dt:.2e} m, "
+          f"mosaic PSNR {psnr:.1f} dB, coverage agreement "
+          f"{(c_c == c_g).mean():.5f}")
     if not (np.abs(n_c - n_g).max() <= 3 and dt <= 5e-3 and psnr >= 40.0):
-        raise AssertionError("the card's run disagrees with the CPU run")
-
-    print(card)
-    print(json.dumps({"kernels": rows}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+        raise AssertionError(f"{detector}: the card's run disagrees with the "
+                             "CPU run")
 
 
 if __name__ == "__main__":

@@ -8,7 +8,8 @@ of the same function beside it. A wrapper takes the plain version only
 for a tensor on the CPU; for a CUDA tensor it launches its kernel or
 raises.
 
-Ported so far: the FastVO ORB track+fuse path (`models/fastvo.py`).
+Ported so far: the FastVO track+fuse path (`models/fastvo.py`), with the
+ORB and the SIFT detector.
 """
 from .core.camera import Camera
 from .core.device import resolve_device

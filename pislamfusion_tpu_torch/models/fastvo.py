@@ -1,12 +1,18 @@
 """FastVO: batch visual odometry + orthomosaic over a ground plane.
 
-Port of pislamfusion_tpu/models/fastvo.py:36-313 with the ORB detector and
-one frame per step. Per frame: rgb->gray, ORB extraction (K1 flat
-pyramid, FAST + NMS + per-cell selection, K2 patch gather, IC angle,
-binned BRIEF), a windowed Hamming match against the previous frame's
-plane points, an 8-iteration pose-only Huber LM, plane re-unprojection,
-then the mosaic feed (canvas->image homography, K3 shear warp at half
-resolution, Laplacian pyramid, analytic weights, max-weight composite).
+Port of pislamfusion_tpu/models/fastvo.py:36-313 with one frame per step
+and either detector of the reference. Per frame: rgb->gray, feature
+extraction, a windowed match against the previous frame's plane points,
+an 8-iteration pose-only Huber LM, plane re-unprojection, then the mosaic
+feed (canvas->image homography, K3 shear warp at half resolution,
+Laplacian pyramid, analytic weights, max-weight composite).
+
+- detector "orb" (the reference's default here): K1 flat pyramid, FAST +
+  NMS + per-cell selection, K2 patch gather, IC angle, binned BRIEF;
+  Hamming match at 80.
+- detector "sift" (the reference system's default extractor,
+  Default.cfg): K5 octave stacks, DoG extrema, K6 orientation and
+  descriptor grids; L2 match at 0.2.
 
 The reference runs the K frames as one `lax.scan` program; here they run
 as a Python loop over frames on the device. Nothing inside the loop reads
@@ -30,11 +36,12 @@ import torch
 from ..core.device import resolve_device
 from ..ops import ba, image as im, lie, matching
 from ..ops import mosaic as M
-from ..ops.features import orb
+from ..ops.features import orb, sift
 
 ELE = M.ELE_PIXELS
 LM_ITERS = 8            # pose-LM iterations per frame (fastvo.py:179-183)
 MAX_HAMMING = 80.0      # ORB match threshold (fastvo.py:159-162)
+MAX_L2 = 0.2            # SIFT match threshold (fastvo.py:159-162)
 
 
 def _mark(mark, stage: str):
@@ -50,6 +57,7 @@ class FastVO(torch.nn.Module):
         poses, n_match = vo.process(frames_rgb, pose0)
         img, covered = vo.blended()
 
+    detector: "orb" or "sift" (n_levels applies to ORB only).
     device: where everything runs; None means `cuda`, and raises without a
     CUDA device. Pass "cpu" for the plain PyTorch versions of the kernels.
     """
@@ -58,7 +66,7 @@ class FastVO(torch.nn.Module):
                  length_pixel: float, bands: int = 5,
                  n_features: int = 1000, n_levels: int = 8,
                  window_radius: float = 60.0, patch_tiles: int = 0,
-                 device=None):
+                 detector: str = "orb", device=None):
         super().__init__()
         self.device = resolve_device(device)
         self.cam = camera
@@ -66,8 +74,17 @@ class FastVO(torch.nn.Module):
         self.canvas_tiles = int(canvas_tiles)
         self.length_pixel = float(length_pixel)
         self.bands = int(bands)
-        self.params = orb.OrbParams(n_features=n_features,
-                                    n_levels=n_levels)
+        self.detector = detector
+        if detector == "orb":
+            self.params = orb.OrbParams(n_features=n_features,
+                                        n_levels=n_levels)
+            self.max_dist = MAX_HAMMING
+        elif detector == "sift":
+            self.params = sift.SiftParams(n_features=n_features)
+            self.max_dist = MAX_L2
+        else:
+            raise ValueError(f"detector must be 'orb' or 'sift', not "
+                             f"{detector!r}")
         self.window_radius = float(window_radius)
         if not patch_tiles:
             diag = float(np.hypot(camera.width, camera.height))
@@ -151,9 +168,10 @@ class FastVO(torch.nn.Module):
         pix = torch.stack([fx * pc[:, 0] / z + cx, fy * pc[:, 1] / z + cy],
                           -1)
         wmask = matching.window_mask(pix, feats["xy"], self.window_radius)
-        dist = matching.distance_matrix(prev_desc, feats["desc"], "orb")
+        dist = matching.distance_matrix(prev_desc, feats["desc"],
+                                        self.detector)
         idx, ok = matching.match(dist, prev_valid, feats["valid"],
-                                 max_dist=MAX_HAMMING, window_mask=wmask)
+                                 max_dist=self.max_dist, window_mask=wmask)
         tgt = torch.where(ok, idx.to(torch.int64), N)
         # matched points carried to the new feature order: onehot[i, j] = 1
         # iff prev feature i matched new feature j
@@ -172,10 +190,19 @@ class FastVO(torch.nn.Module):
                  pose_new), (pose_new, ok.sum()))
 
     def _detect(self, rgb, mark=None):
-        """ORB features of one frame [H, W(, 3)] (any dtype), in the
+        """Features of one frame [H, W(, 3)] (any dtype), in the
         detector's three stages; `mark(stage)` as each is enqueued."""
         rgb = rgb.to(torch.float32)
         gray = im.rgb_to_gray(rgb) if rgb.ndim == 3 else rgb
+        if self.detector == "sift":
+            stacks = sift.build_stacks(gray, self.params)
+            _mark(mark, "octave_stacks")
+            picks = sift.select_octaves(stacks, self.params)
+            _mark(mark, "extrema_select")
+            feats = sift.describe(stacks, picks, tuple(gray.shape),
+                                  self.params)
+            _mark(mark, "orient_desc")
+            return feats
         packed, views, offs = orb.build_pyramid(gray, self.params)
         _mark(mark, "pyramid")
         picks = orb.select_levels(views, self.params)

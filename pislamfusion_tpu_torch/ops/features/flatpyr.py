@@ -150,6 +150,15 @@ def _device_tables(h, w, n_levels, scale_factor, cell, device: str):
              "col_len", "col_w")}
 
 
+@functools.lru_cache(maxsize=8)
+def _device_mats16(h, w, n_levels, scale_factor, cell, device: str):
+    """The plain version's dense bf16-valued resize matrices (as float32),
+    uploaded once per shape and device."""
+    t = flat_tables(h, w, n_levels, scale_factor, cell)
+    return [(torch.from_numpy(mr).to(device), torch.from_numpy(mc).to(device))
+            for mr, mc in t.mats16]
+
+
 def _edge_pad0(img, plan):
     """Level 0's block: the exact f32 edge pad of the image."""
     h, w = img.shape
@@ -168,9 +177,8 @@ def build_flat_pyramid_plain(img, n_levels: int, scale_factor: float,
     t = flat_tables(h, w, n_levels, scale_factor, cell)
     src16 = img.to(torch.bfloat16).float()
     blocks = [_edge_pad0(img, t.plan)]
-    for mr, mc in t.mats16:
-        mr = torch.from_numpy(mr).to(img.device)
-        mc = torch.from_numpy(mc).to(img.device)
+    for mr, mc in _device_mats16(h, w, n_levels, scale_factor, cell,
+                                 str(img.device)):
         t1 = (mr @ src16).to(torch.bfloat16).float()
         blocks.append(t1 @ mc.T)
     return torch.cat(blocks, 0)

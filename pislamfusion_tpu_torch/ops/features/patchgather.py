@@ -1,6 +1,7 @@
-"""K2: N fixed-size square patches around integer centers.
+"""K2: N fixed-size square patches around integer centers; K6: bilinear
+samples on scattered sub-pixel grids around integer centers.
 
-Replaces pislamfusion_tpu/ops/features/patchgather.py
+K2 replaces pislamfusion_tpu/ops/features/patchgather.py
 `gather_patches_pallas` (its `pallas_call` at :148), which the ORB
 descriptor tail calls on the packed pyramid (orb.py:978-980).
 
@@ -15,6 +16,24 @@ gathers natively, so the kernel (`csrc/patchgather.cu`) is one thread per
 output element: neighbouring threads write neighbouring output words and
 read neighbouring pixels of one patch row (coalesced), and the source
 rows of overlapping patches are shared through L2.
+
+K6 replaces `bilinear_grid_pallas` (its `pallas_call` at :282), which
+SIFT's orientation and descriptor stages call on the packed gradient
+image (sift.py:264-273). Its function is the kernel's, not
+image.bilinear_sample's: the image is zero-padded by R + 2, a sample
+sits at centre + rel in f32, the two rows are interpolated first, then
+the two columns (`(1-fy)*v[y0] + fy*v[y0+1]`, then
+`(1-fx)*A[x0] + fx*A[x0+1]`), with the kernel's slab clips (which never
+act for |rel| < R). The TPU kernel's one-hot `dot_general`s carry no
+precision, so on a TPU they round to bf16; the port computes the f32
+function the Pallas interpreter computes. On the H100 K6 is bound by
+bytes: 1000 keypoints x 256 samples x 2 channels write 2 MB and read the
+pixels the grids cover. The TPU kernel DMA'd an aligned slab per keypoint
+and evaluated samples as one-hot MXU products because a TPU cannot
+gather; the CUDA kernel (`csrc/bilineargrid.cu`) is one thread per
+(keypoint, sample) that reads the four taps of every channel, from L2
+where grids overlap, rounding each product and sum on its own so that
+it equals the plain version.
 """
 from __future__ import annotations
 
@@ -76,3 +95,99 @@ def gather_patches(img, xy, radius: int):
 
 
 gather_patches.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6: bilinear samples at scattered sub-pixel offsets from integer centres
+# ---------------------------------------------------------------------------
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _slab_dims(C: int, R: int):
+    """The TPU kernel's slab (patchgather.py:184-186): height WH, lane
+    alignment XA in pixels, width WWpx in pixels."""
+    XA = 128 // C
+    return _ceil_to(2 * R + 2 + 8, 8), XA, _ceil_to(XA + 2 * R + 2, XA)
+
+
+def _grid_geometry(centers, C: int, R: int):
+    """The slab dims, and per centre the slab origin (ya, xa) in the image
+    padded by R + 2 and the centre's offset (dy0, dx0) inside its slab
+    (patchgather.py:204-209). Samples are interpolated at rel + (dy0, dx0)
+    of the slab, so the arithmetic (and its rounding) is the kernel's."""
+    WH, XA, WWpx = _slab_dims(C, R)
+    cy = centers[:, 1].to(torch.int64) + (R + 2)
+    cx = centers[:, 0].to(torch.int64) + (R + 2)
+    ya = torch.div(cy - R, 8, rounding_mode="floor") * 8
+    xa = torch.div(cx - R, XA, rounding_mode="floor") * XA
+    return WH, XA, WWpx, ya, xa, cy - ya, cx - xa
+
+
+def bilinear_grid_plain(img, centers, rel, radius: int = 16):
+    """Plain PyTorch version: the four taps of each sample read with zero
+    fill, rows interpolated first, then columns."""
+    H, W, C = img.shape
+    R = radius
+    WH, _, WWpx, ya, xa, dy0, dx0 = _grid_geometry(centers, C, R)
+    ry = rel[:, 1] + dy0.to(torch.float32)[:, None]
+    rx = rel[:, 0] + dx0.to(torch.float32)[:, None]
+    y0 = torch.floor(ry).clamp(0, WH - 2)
+    fy = (ry - y0).clamp(0.0, 1.0)[..., None]
+    x0 = torch.floor(rx).clamp(0, WWpx - 2)
+    fx = (rx - x0).clamp(0.0, 1.0)[..., None]
+    iy = ya[:, None] + y0.to(torch.int64) - (R + 2)            # image rows
+    ix = xa[:, None] + x0.to(torch.int64) - (R + 2)
+
+    def tap(yy, xx):
+        inside = (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
+        v = img[yy.clamp(0, H - 1), xx.clamp(0, W - 1)]
+        return torch.where(inside[..., None], v, torch.zeros_like(v))
+    a0 = (1.0 - fy) * tap(iy, ix) + fy * tap(iy + 1, ix)
+    a1 = (1.0 - fy) * tap(iy, ix + 1) + fy * tap(iy + 1, ix + 1)
+    return (1.0 - fx) * a0 + fx * a1
+
+
+def bilinear_grid(img, centers, rel, radius: int = 16):
+    """img: [H, W, C] float32; centers: [K, 2] int32 (x, y) image points;
+    rel: [K, 2, M] float32 sample offsets (dx, dy rows) from the centre,
+    |offset| < radius. Returns [K, M, C] float32 bilinear samples with zero
+    fill outside the image. CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    if img.device.type == "cpu":
+        return bilinear_grid_plain(img, centers, rel, radius)
+    if img.device.type != "cuda":
+        raise ValueError(f"bilinear_grid: unsupported device {img.device}")
+    if img.dtype != torch.float32 or img.ndim != 3:
+        raise ValueError("bilinear_grid: img must be float32 [H, W, C]")
+    if (centers.device != img.device or rel.device != img.device
+            or centers.ndim != 2 or centers.shape[1] != 2 or rel.ndim != 3
+            or rel.shape[:2] != (centers.shape[0], 2)
+            or rel.dtype != torch.float32):
+        raise ValueError("bilinear_grid: centers must be [K, 2] and rel "
+                         "float32 [K, 2, M] on img's device")
+    img = img.contiguous()
+    centers = centers.to(torch.int32).contiguous()
+    rel = rel.contiguous()
+    H, W, C = img.shape
+    K, _, M = rel.shape
+    WH, XA, WWpx = _slab_dims(C, radius)
+    out = torch.empty((K, M, C), dtype=torch.float32, device=img.device)
+    if K == 0 or M == 0:
+        return out
+    lib = _build.load("bilineargrid")
+    fn = lib.bilineargrid_launch
+    fn.restype = ctypes.c_int
+    V, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [V, I, I, I, V, V, I, I, I, I, I, I, V, V]
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        err = fn(img.data_ptr(), H, W, C, centers.data_ptr(), rel.data_ptr(),
+                 K, M, radius, WH, XA, WWpx, out.data_ptr(), stream)
+    _build.check(err, "bilineargrid")
+    bilinear_grid.launches += 1
+    return out
+
+
+bilinear_grid.launches = 0

@@ -1,12 +1,13 @@
 """Image ops on [..., H, W, C] float32 tensors: OpenCV-compatible
 pyrDown/pyrUp, Laplacian pyramids, bilinear resize, homography grids.
 
-Port of pislamfusion_tpu/ops/image.py (:304, :352-498, :548-567, :603).
-The reference has two formulations of each stencil: banded MXU matmuls
-(on the TPU) and f32 shift-and-add slices (on every other backend). The
-port follows the f32 shift-and-add semantics; the banded-MXU, `decimate2`
-and bf16-chain branches were TPU layout devices and are not carried
-over. The numpy matrix builders are the port's own copies.
+Port of pislamfusion_tpu/ops/image.py (:86-94, :304, :352-498, :548-567,
+:603). The reference has two formulations of each stencil: banded MXU
+matmuls (on the TPU) and f32 shift-and-add slices (on every other
+backend). The port follows the f32 shift-and-add semantics and the exact
+`[::2, ::2]` of `decimate2`; the banded-MXU and bf16-chain branches were
+TPU layout devices and are not carried over. The numpy matrix builders
+are the port's own copies (`_blur_matrix` feeds K5's tables).
 """
 from __future__ import annotations
 
@@ -72,6 +73,24 @@ def _sep_conv(img, k, border: str = "reflect"):
 
 def gaussian_blur(img, sigma: float, radius: int | None = None):
     return _sep_conv(img, gaussian_kernel1d(sigma, radius))
+
+
+@functools.lru_cache(maxsize=None)
+def _blur_matrix(n: int, taps: tuple, mode: str) -> np.ndarray:
+    """[n, n] float32 banded matrix: row j = the kernel centred at j, the
+    border taps folded in by `mode` (summed in float32, tap order)."""
+    r = (len(taps) - 1) // 2
+    m = np.zeros((n, n), np.float32)
+    for j in range(n):
+        for i, w in enumerate(taps):
+            m[j, _reflect_idx(j + i - r, n, mode)] += w
+    return m
+
+
+def decimate2(img):
+    """2x nearest decimation, `img[::2, ::2]`, of [H, W] or [H, W, C] (a
+    strided view)."""
+    return img[::2, ::2]
 
 
 def pyr_down(img):

@@ -1,10 +1,11 @@
 """Descriptor matching as dense distance matrices.
 
 Port of pislamfusion_tpu/ops/matching.py:26-92: Hamming distances of
-{0,1} bit-planes as one matrix product (|a| + |b| - 2 a.b; the reference
-left that product to XLA, so it stays `torch.matmul` here), then row
-argmin, threshold, optional Lowe ratio and cross-check, under an
-optional window mask.
+{0,1} bit-planes (ORB) and L2 distances of float descriptors (SIFT), each
+as one matrix product (|a|^2 + |b|^2 - 2 a.b; the reference left that
+product to XLA, so it stays `torch.matmul` here), then row argmin,
+threshold, optional Lowe ratio and cross-check, under an optional window
+mask.
 """
 from __future__ import annotations
 
@@ -24,11 +25,26 @@ def hamming_matrix(a_bits, b_bits):
     return na[:, None] + nb[None, :] - 2.0 * ab
 
 
+def l2sq_matrix(a, b):
+    """a [N, D], b [M, D] float -> [N, M] squared L2 distances, clamped
+    at 0 (keep TF32 off on the card: the SIFT threshold is 0.2 on unit
+    descriptors)."""
+    a = a.to(torch.float32)
+    b = b.to(torch.float32)
+    ab = a @ b.T
+    na = (a * a).sum(-1)
+    nb = (b * b).sum(-1)
+    return torch.clamp(na[:, None] + nb[None, :] - 2.0 * ab, min=0.0)
+
+
 def distance_matrix(desc_a, desc_b, kind: str):
-    """kind 'orb': Hamming over bit-planes (the only kind ported)."""
-    if kind != "orb":
-        raise ValueError(f"distance kind {kind!r} is not ported")
-    return hamming_matrix(desc_a, desc_b)
+    """kind 'orb': Hamming over bit-planes; 'sift': L2, not squared (the
+    reference thresholds plain L2 at 0.2)."""
+    if kind == "orb":
+        return hamming_matrix(desc_a, desc_b)
+    if kind == "sift":
+        return torch.sqrt(l2sq_matrix(desc_a, desc_b))
+    raise ValueError(f"distance kind {kind!r} is not ported")
 
 
 def _masked(dist, valid_a, valid_b, extra_mask=None):

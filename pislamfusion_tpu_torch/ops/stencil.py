@@ -1,0 +1,293 @@
+"""K5: a stack of banded sandwiches of one image,
+out[p] = mhs[p] @ x @ mws[p]^T.
+
+Replaces pislamfusion_tpu/ops/stencil_pallas.py `banded_stack_pallas` (its
+`pallas_call` in `_stack_call` at :338), which SIFT's octave stack calls
+(sift.py:99-105) for every octave with min(h, w) >= 256 whose bands fit
+`stack_fusable`.
+
+Function: for the P composed chain-blur operators of one octave,
+M_p = B_p @ ... @ B_1 (B_i the reflect-folded blur matrix of the i-th
+chain sigma, composed in float64 and cast to float32, as
+sift._stack_matrices builds them),
+
+    out[p] = mhs[p] @ x @ mws[p]^T        (the row product first, all f32)
+
+On the H100 the stack is bound by operations: at 1080p the default SIFT
+chain (5 scales, composed half-widths 4, 9, 15, 23 and 33) is ~1.43 GFLOP
+of f32 multiply-adds for octave 0 against ~50 MB of traffic. The TPU kernel
+ran dense 128-row MXU tiles over a static union window; here the host
+keeps, per output row of each operator, only its nonzero span (start,
+length, weights: every span is contiguous because the reflect folds stay
+inside [0, n)), and the CUDA kernel (`csrc/bandedstack.cu`) gives each
+block a 32x32 output tile of all P scales: it loads the tile's input slab
+(the union of every scale's row and column spans) into shared memory
+once, then per scale runs the row pass into shared memory and the column
+pass out to HBM. The P scales share that one load, which is what the TPU
+kernel kept out of HBM. Skipping the zeros of the dense product changes
+only the f32 summation order. TF32 is not used: the TPU kernel ran at
+Precision.HIGHEST.
+
+The host tables are built without any dense n^3 product: each banded blur
+matrix is applied in turn to a band of half-width sum(r_i) in float64.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..core.device import device_const
+from . import image as im
+
+_BLK = 128          # the TPU kernel's tile, for the fusability verdict
+TILE = 32           # the CUDA kernel's output tile (rows and columns)
+
+
+@dataclasses.dataclass(frozen=True)
+class StackTables:
+    """Host tables of P banded [n, n] operators per axis of an h x w image:
+    per output row (or column) the start, length and float32 weights of
+    its nonzero span, and per 32-row (32-column) kernel tile the union of
+    every scale's spans."""
+    key: tuple               # (h, w, taps of each chain step)
+    row_start: np.ndarray    # [P, h] int32
+    row_len: np.ndarray      # [P, h] int32
+    row_w: np.ndarray        # [P, h, KR] float32
+    col_start: np.ndarray    # [P, w] int32
+    col_len: np.ndarray      # [P, w] int32
+    col_w: np.ndarray        # [P, w, KC] float32
+    tile_r0: np.ndarray      # [ceil(h / 32)] int32 first input row of a tile
+    tile_rn: np.ndarray      # [ceil(h / 32)] int32 input rows of a tile
+    tile_c0: np.ndarray      # [ceil(w / 32)] int32
+    tile_cn: np.ndarray      # [ceil(w / 32)] int32
+
+    @property
+    def shape(self):
+        return self.row_start.shape[1], self.col_start.shape[1]
+
+    @property
+    def scales(self) -> int:
+        return self.row_start.shape[0]
+
+
+def _compose_chain(n: int, taps_list) -> tuple:
+    """Spans of M_p = B_p @ ... @ B_1 (B_i = im._blur_matrix(n, taps_i,
+    "reflect")), composed in float64 on a band of half-width sum(r_i) and
+    cast to float32. Returns (start [P, n], len [P, n], weights [P, n, K])."""
+    rtot = sum((len(t) - 1) // 2 for t in taps_list)
+    nb = 2 * rtot + 1
+    j = np.arange(n)
+    band = np.zeros((n, nb), np.float64)   # band[j, t] = M[j, j - rtot + t]
+    band[:, rtot] = 1.0
+    t = np.arange(nb)
+    starts, lens, wts = [], [], []
+    for taps in taps_list:
+        b = im._blur_matrix(n, tuple(taps), "reflect")
+        rows, cols = np.nonzero(b)             # row-major: rows ascending
+        cnt = np.bincount(rows, minlength=n)
+        slot = np.arange(rows.size) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+        q = np.tile(j[:, None], (1, cnt.max()))
+        v = np.zeros(q.shape, np.float64)
+        q[rows, slot] = cols
+        v[rows, slot] = b[rows, cols]
+        r = (len(taps) - 1) // 2
+        padded = np.pad(band, ((0, 0), (r, r)))
+        new = np.zeros_like(band)
+        for s in range(q.shape[1]):
+            # M_new[j, c] += B[j, q] * M[q, c], c = j - rtot + t, read from
+            # row q of the band at t + (j - q) (|j - q| <= r)
+            new += v[:, s:s + 1] * padded[q[:, s:s + 1],
+                                          t[None, :] + (j - q[:, s])[:, None]
+                                          + r]
+        band = new
+        f32 = band.astype(np.float32)
+        nz = f32 != 0
+        first = nz.argmax(1)
+        last = nb - 1 - nz[:, ::-1].argmax(1)
+        starts.append(j - rtot + first)
+        lens.append(last - first + 1)
+        wts.append((f32, first))
+    kmax = max(int(ln.max()) for ln in lens)
+    out_w = []
+    for (f32, first), ln in zip(wts, lens):
+        k = np.arange(kmax)
+        idx = np.minimum(first[:, None] + k[None, :], nb - 1)
+        w = np.take_along_axis(f32, idx, 1)
+        out_w.append(np.where(k[None, :] < ln[:, None], w, 0.0))
+    return (np.stack(starts).astype(np.int32), np.stack(lens).astype(np.int32),
+            np.stack(out_w).astype(np.float32))
+
+
+def _tile_windows(start, length):
+    """Per 32-wide kernel tile: (first input index, count) of the union of
+    every scale's spans over the tile's outputs."""
+    n = start.shape[1]
+    t0, tn = [], []
+    for i in range(0, n, TILE):
+        s = start[:, i:i + TILE]
+        e = s + length[:, i:i + TILE]
+        t0.append(int(s.min()))
+        tn.append(int(e.max()) - int(s.min()))
+    return np.asarray(t0, np.int32), np.asarray(tn, np.int32)
+
+
+@functools.lru_cache(maxsize=16)
+def chain_tables(h: int, w: int, taps_list: tuple) -> StackTables:
+    """The tables of the composed chain blurs of `taps_list` (one tuple of
+    taps per chain step) on an h x w image."""
+    rs, rl, rw = _compose_chain(h, taps_list)
+    cs, cl, cw = _compose_chain(w, taps_list)
+    tr0, trn = _tile_windows(rs, rl)
+    tc0, tcn = _tile_windows(cs, cl)
+    return StackTables((h, w, taps_list), rs, rl, rw, cs, cl, cw,
+                       tr0, trn, tc0, tcn)
+
+
+def dense(start, length, weights) -> np.ndarray:
+    """The [P, n, n] float32 matrices of a set of spans."""
+    P, n, k = weights.shape
+    m = np.zeros((P, n, n), np.float32)
+    kk = np.arange(k)
+    live = kk[None, None, :] < length[:, :, None]
+    p, r, c = np.nonzero(live)
+    m[p, r, start[p, r] + c] = weights[p, r, c]
+    return m
+
+
+# ---------------------------------------------------------------------------
+# fusability: the reference's verdict (stencil_pallas.py:263-287), on spans
+# ---------------------------------------------------------------------------
+
+def _min_kb(start, length) -> int:
+    """stencil_pallas._min_kb of one [n_out, n_in] operator: the 128-block
+    window a 128-row output tile needs, at most over the tiles."""
+    kb = 1
+    for i in range(0, start.shape[0], _BLK):
+        ln = length[i:i + _BLK]
+        live = ln > 0
+        if live.any():
+            s = start[i:i + _BLK][live]
+            first, last = int(s.min()), int((s + ln[live] - 1).max())
+            s0 = (first // _BLK) * _BLK
+            kb = max(kb, -(-(last + 1 - s0) // _BLK))
+    return kb
+
+
+def _lane_union_kb(start, length, n_in: int) -> int:
+    """The 128-block width of stencil_pallas._lane_union_windows' union
+    window over every scale's column spans (that function gives up when it
+    exceeds min(max_kb, ceil(n_in / 128)))."""
+    nj = -(-start.shape[1] // _BLK)
+    nk = -(-n_in // _BLK)
+    lo = np.full(nj, n_in, np.int64)
+    hi = np.zeros(nj, np.int64)
+    for s_p, l_p in zip(start, length):
+        for j in range(nj):
+            ln = l_p[j * _BLK:(j + 1) * _BLK]
+            live = ln > 0
+            if live.any():
+                s = s_p[j * _BLK:(j + 1) * _BLK][live]
+                lo[j] = min(lo[j], int(s.min()))
+                hi[j] = max(hi[j], int((s + ln[live] - 1).max()))
+    w0 = (np.minimum(lo, nk * _BLK) // _BLK) * _BLK
+    kb = 1
+    for j in range(nj):
+        if hi[j] >= lo[j]:
+            kb = max(kb, -(-int(hi[j] + 1 - w0[j]) // _BLK))
+    return kb
+
+
+def stack_fusable(tabs: StackTables, max_kb: int = 4) -> bool:
+    """stencil_pallas.stack_fusable: every scale's row band fits a narrow
+    fixed window and the column bands a narrow union window. The octave
+    stack takes K5 exactly where the reference does."""
+    h, w = tabs.shape
+    kbr = max(_min_kb(s, ln) for s, ln in zip(tabs.row_start, tabs.row_len))
+    kbc = _lane_union_kb(tabs.col_start, tabs.col_len, w)
+    return (kbr <= min(max_kb, -(-h // _BLK))
+            and kbc <= min(max_kb, -(-w // _BLK)))
+
+
+# ---------------------------------------------------------------------------
+# the plain version and the kernel's wrapper
+# ---------------------------------------------------------------------------
+
+def _dense_on(tabs: StackTables, device):
+    return (device_const(("bandedstack_mh", tabs.key), device, lambda:
+                         torch.from_numpy(dense(tabs.row_start, tabs.row_len,
+                                                tabs.row_w))),
+            device_const(("bandedstack_mw", tabs.key), device, lambda:
+                         torch.from_numpy(dense(tabs.col_start, tabs.col_len,
+                                                tabs.col_w))))
+
+
+def banded_stack_plain(x, tabs: StackTables):
+    """Plain PyTorch version: two dense f32 products a scale, the row
+    product first."""
+    mhs, mws = _dense_on(tabs, x.device)
+    return torch.matmul(torch.matmul(mhs, x), mws.transpose(1, 2))
+
+
+def _device_tables(tabs: StackTables, device):
+    def up(name, a):
+        return device_const(("bandedstack", name, tabs.key), device,
+                            lambda: torch.from_numpy(np.ascontiguousarray(a)))
+    # column weights as [P, KC, w]: a warp's 32 output columns read 32
+    # consecutive words
+    return {
+        "row_start": up("row_start", tabs.row_start),
+        "row_len": up("row_len", tabs.row_len),
+        "row_w": up("row_w", tabs.row_w),
+        "col_start": up("col_start", tabs.col_start),
+        "col_len": up("col_len", tabs.col_len),
+        "col_wt": up("col_wt", tabs.col_w.transpose(0, 2, 1)),
+        "tile_r0": up("tile_r0", tabs.tile_r0),
+        "tile_rn": up("tile_rn", tabs.tile_rn),
+        "tile_c0": up("tile_c0", tabs.tile_c0),
+        "tile_cn": up("tile_cn", tabs.tile_cn),
+    }
+
+
+def banded_stack(x, tabs: StackTables):
+    """x: [h, w] float32. Returns [P, h, w] float32, out[p] = mhs[p] @ x @
+    mws[p]^T for the operators of `tabs`. CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return banded_stack_plain(x, tabs)
+    if x.device.type != "cuda":
+        raise ValueError(f"banded_stack: unsupported device {x.device}")
+    if x.dtype != torch.float32 or tuple(x.shape) != tabs.shape:
+        raise ValueError(f"banded_stack: x must be float32 {tabs.shape}")
+    x = x.contiguous()
+    h, w = tabs.shape
+    P = tabs.scales
+    d = _device_tables(tabs, x.device)
+    out = torch.empty((P, h, w), dtype=torch.float32, device=x.device)
+    lib = _build.load("bandedstack")
+    fn = lib.bandedstack_launch
+    fn.restype = ctypes.c_int
+    V, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [V, I, I, I, V, V, V, I, V, V, V, I, V, V, V, V, I, I, V,
+                   V]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), h, w, P,
+                 d["row_start"].data_ptr(), d["row_len"].data_ptr(),
+                 d["row_w"].data_ptr(), tabs.row_w.shape[2],
+                 d["col_start"].data_ptr(), d["col_len"].data_ptr(),
+                 d["col_wt"].data_ptr(), tabs.col_w.shape[2],
+                 d["tile_r0"].data_ptr(), d["tile_rn"].data_ptr(),
+                 d["tile_c0"].data_ptr(), d["tile_cn"].data_ptr(),
+                 int(tabs.tile_rn.max()), int(tabs.tile_cn.max()),
+                 out.data_ptr(), stream)
+    _build.check(err, "bandedstack")
+    banded_stack.launches += 1
+    return out
+
+
+banded_stack.launches = 0

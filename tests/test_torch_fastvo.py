@@ -1,13 +1,19 @@
-"""The port's FastVO slice against the JAX package's, and the package's
-boundaries.
+"""The port's FastVO slice and ORB extractor against the JAX package's,
+and the package's boundaries.
 
 The slice: K=3 frames of bench.py's synthetic survey strip at 600x640
 (ORB-256, 4 levels, 3 bands) through the JAX FastVO on its TPU path (K1,
-K2, K3 through the Pallas interpreter) and through the port on the CPU,
-both starting from the same canvas, seeded through `convert.py`. Bounds:
-n_match within 3 per frame, translation within 5e-3 m, quaternion within
-1e-4, blended mosaic >= 40 dB PSNR against the JAX mosaic over the pixels
-both cover, coverage masks equal on >= 99.9 % of the canvas.
+K2, K3 in interpret mode) and through the port on the CPU, both starting
+from the same canvas, seeded through `convert.py`. Bounds: n_match within
+3 per frame, translation within 5e-3 m, quaternion within 1e-4, blended
+mosaic >= 40 dB PSNR against the JAX mosaic over the pixels both cover,
+coverage masks equal on >= 99.9 % of the canvas.
+
+`orb_detect` is held against frame 0's features of that same JAX run (the
+ones its initial carry is built from), on the same gray image: >= 98 % of
+the valid keypoints with the same (xy, octave), and >= 99.9 % of the
+descriptor bits equal over those (the two pyramids differ by f32
+summation order, which can flip a near-tie FAST rank or BRIEF compare).
 """
 import os
 import subprocess
@@ -17,57 +23,66 @@ import numpy as np
 import pytest
 import torch
 
-import jax.numpy as jnp
-
 import chip_smoke
-from pislamfusion_tpu.core.camera import Camera as JCamera
-from pislamfusion_tpu.models.fastvo import FastVO as JFastVO
 from pislamfusion_tpu_torch import convert
 from pislamfusion_tpu_torch.ops import shearwarp as tsw
 from pislamfusion_tpu_torch.ops.features import flatpyr as tfp
+from pislamfusion_tpu_torch.ops.features import orb as torb
 from pislamfusion_tpu_torch.ops.features import patchgather as tpg
-from torch_port_reference import forced_tpu_path
+from torch_port_reference import (jax_fastvo_run,  # noqa: F401
+                                  once_per_session, seed_canvas,
+                                  torch_one_thread)
 
 H, W, FX, K = 600, 640, 600.0, 3
 N, LEVELS, BANDS = 256, 4, 3
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _seed_canvas(canvas_tiles, rng):
-    """A canvas that already holds a mosaic in its left third: Laplacian
-    bands of smooth content, weights 0.3."""
-    n = canvas_tiles * 256
-    lap, w = [], []
-    for i in range(BANDS + 1):
-        s = n >> i
-        a = np.zeros((s, s, 3), np.float32)
-        b = np.zeros((s, s, 1), np.float32)
-        a[:, :s // 3] = rng.normal(0, 4.0, (s, s // 3, 3))
-        if i == BANDS:
-            a[:, :s // 3] += 120.0
-        b[:, :s // 3] = 0.3
-        lap.append(a)
-        w.append(b)
-    return lap, w
-
-
-def test_fastvo_slice_matches_reference_tpu_path(monkeypatch):
+@pytest.fixture(scope="module")
+def strip():
     frames_t, poses = chip_smoke.render_strip(K, H, W, FX, 0.24, 1024, "cpu")
-    frames = frames_t.numpy()
-    lp, patch_tiles, canvas_tiles, min_xy = chip_smoke.strip_geometry(
-        H, W, FX, poses)
-    lap0, w0 = _seed_canvas(canvas_tiles, np.random.default_rng(50))
+    canvas_tiles = chip_smoke.strip_geometry(H, W, FX, poses)[2]
+    return (frames_t.numpy(), poses,
+            seed_canvas(canvas_tiles, BANDS, np.random.default_rng(50)))
 
-    jvo = JFastVO(JCamera(W, H, FX, FX, W / 2.0, H / 2.0), min_xy,
-                  canvas_tiles, lp, bands=BANDS, n_features=N,
-                  n_levels=LEVELS, window_radius=60.0,
-                  patch_tiles=patch_tiles, warp_mode="shear")
-    jvo.canvas_lap = [jnp.asarray(a) for a in lap0]
-    jvo.canvas_w = [jnp.asarray(a) for a in w0]
-    with forced_tpu_path(monkeypatch):
-        p_j, n_j = jvo.process(jnp.asarray(frames), poses[0])
-        img_j, cov_j = jvo.blended()
 
+@pytest.fixture(scope="module")
+def jax_run(strip, tmp_path_factory, worker_id):
+    """The one JAX reference run of this module (of the test session)."""
+    frames, poses, canvas = strip
+    return once_per_session(
+        "jax_orb_fastvo",
+        lambda: jax_fastvo_run(frames, poses, FX, canvas, "orb", N, LEVELS,
+                               BANDS),
+        tmp_path_factory, worker_id)
+
+
+def test_orb_detect_matches_reference_tpu_path(jax_run):
+    ref = jax_run["feats0"]
+    got = {k: v.numpy() for k, v in torb.orb_detect(
+        torch.from_numpy(jax_run["gray0"].copy()),
+        torb.OrbParams(n_features=N, n_levels=LEVELS)).items()}
+    assert set(got) == set(ref)
+    for k in ref:
+        assert got[k].shape == ref[k].shape and got[k].dtype == ref[k].dtype
+
+    def keyed(d):
+        return {(round(float(x), 3), round(float(y), 3), int(o)): i
+                for i, ((x, y), o, v) in enumerate(
+                    zip(d["xy"], d["octave"], d["valid"])) if v}
+    kr, kg = keyed(ref), keyed(got)
+    assert len(kr) > 200
+    common = set(kr) & set(kg)
+    assert len(common) >= 0.98 * len(kr)
+    ir = [kr[c] for c in common]
+    ig = [kg[c] for c in common]
+    assert np.mean(got["desc"][ig] == ref["desc"][ir]) >= 0.999
+    np.testing.assert_allclose(got["response"][ig], ref["response"][ir],
+                               atol=1e-3)
+
+
+def test_fastvo_slice_matches_reference_tpu_path(strip, jax_run):
+    frames, poses, (lap0, w0) = strip
     for fn in (tfp.build_flat_pyramid, tpg.gather_patches, tsw.warp_patch):
         fn.launches = 0
     tvo = chip_smoke.make_fastvo(H, W, FX, poses, N, LEVELS, BANDS, "cpu")
@@ -79,6 +94,8 @@ def test_fastvo_slice_matches_reference_tpu_path(monkeypatch):
     assert (tfp.build_flat_pyramid.launches, tpg.gather_patches.launches,
             tsw.warp_patch.launches) == (0, 0, 0)
 
+    p_j, n_j = jax_run["poses"], jax_run["n_match"]
+    img_j, cov_j = jax_run["img"], jax_run["cov"]
     assert n_t.shape == (K,) and p_t.shape == (K, 7)
     assert np.abs(n_t - n_j).max() <= 3 and (n_t[1:] > 50).all()
     assert np.abs(p_t[:, :3] - p_j[:, :3]).max() <= 5e-3
@@ -91,8 +108,8 @@ def test_fastvo_slice_matches_reference_tpu_path(monkeypatch):
     # the carried canvas, read back through convert.py
     state = convert.fastvo_state_to_numpy(
         {"canvas_lap": tvo.canvas_lap, "canvas_w": tvo.canvas_w})
-    for a, b in zip(state["canvas_w"], jvo.canvas_w):
-        assert np.mean(np.abs(a - np.asarray(b)) <= 1e-2) >= 0.999
+    for a, b in zip(state["canvas_w"], jax_run["canvas_w"]):
+        assert np.mean(np.abs(a - b) <= 1e-2) >= 0.999
 
 
 def test_convert_round_trip():
@@ -115,28 +132,61 @@ def test_convert_round_trip():
         np.testing.assert_array_equal(a, b)
 
 
+def test_convert_round_trip_keeps_a_sift_carry():
+    """A SIFT carry's float32 descriptors (RootSIFT values in [0, 0.2])
+    come back bit for bit, and load_fastvo_state takes it into a SIFT
+    FastVO but refuses it for an ORB one (uint8 descriptors)."""
+    rng = np.random.default_rng(52)
+    _, poses = chip_smoke.render_strip(1, 256, 320, 320.0, 0.24, 1024,
+                                       "cpu")
+    vos = {d: chip_smoke.make_fastvo(256, 320, 320.0, poses, 128, LEVELS, 2,
+                                     "cpu", d) for d in ("sift", "orb")}
+    lap = [a.numpy() for a in vos["sift"].canvas_lap]
+    w = [a.numpy() for a in vos["sift"].canvas_w]
+    carry = (rng.uniform(0.0, 0.2, (5, 128)).astype(np.float32),
+             rng.random(5) < 0.5, rng.normal(size=(5, 3)).astype(np.float32),
+             rng.normal(size=7).astype(np.float32),
+             rng.normal(size=7).astype(np.float32))
+    state = convert.fastvo_state_from_numpy(lap, w, carry, device="cpu")
+    back = convert.fastvo_state_to_numpy(state)
+    for a, b in zip(back["carry"], carry):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    loaded = convert.load_fastvo_state(vos["sift"], state)
+    assert torch.equal(loaded[0], torch.from_numpy(carry[0]))
+    with pytest.raises(ValueError, match="carry"):
+        convert.load_fastvo_state(vos["orb"], state)
+
+
 def test_process_from_a_converted_state_matches_a_fresh_run():
     """A run seeded with frame 0's carry and the canvas, both carried to
-    numpy and back through convert.py, is the run from frame 0."""
-    frames, poses = chip_smoke.render_strip(2, H, W, FX, 0.24, 1024, "cpu")
-    runs = []
-    for seeded in (False, True):
-        tvo = chip_smoke.make_fastvo(H, W, FX, poses, N, LEVELS, BANDS,
-                                     "cpu")
-        carry = None
-        if seeded:
-            state = convert.fastvo_state_to_numpy({
-                "canvas_lap": tvo.canvas_lap, "canvas_w": tvo.canvas_w,
-                "carry": tvo.initial_carry(frames[0],
-                                           torch.from_numpy(poses[0]))})
-            carry = convert.load_fastvo_state(
-                tvo, convert.fastvo_state_from_numpy(
-                    state["canvas_lap"], state["canvas_w"], state["carry"],
-                    device="cpu"))
-            assert len(carry) == 5
-        runs.append(tvo.process(frames, poses[0], carry) + tvo.blended())
-    for a, b in zip(*runs):
-        np.testing.assert_array_equal(a, b)
+    numpy and back through convert.py, is the run from frame 0, for either
+    detector's carry (ORB's uint8 bit-planes, SIFT's float32 descriptors).
+    At 256x320, the smallest frame on which SIFT's octave 0 takes K5."""
+    h, w, fx = 256, 320, 320.0
+    frames, poses = chip_smoke.render_strip(2, h, w, fx, 0.24, 1024, "cpu")
+    for detector, desc_dtype in (("orb", np.uint8), ("sift", np.float32)):
+        runs = []
+        for seeded in (False, True):
+            tvo = chip_smoke.make_fastvo(h, w, fx, poses, 128, LEVELS, 2,
+                                         "cpu", detector)
+            carry = None
+            if seeded:
+                state = convert.fastvo_state_to_numpy({
+                    "canvas_lap": tvo.canvas_lap, "canvas_w": tvo.canvas_w,
+                    "carry": tvo.initial_carry(frames[0],
+                                               torch.from_numpy(poses[0]))})
+                assert state["carry"][0].dtype == desc_dtype
+                carry = convert.load_fastvo_state(
+                    tvo, convert.fastvo_state_from_numpy(
+                        state["canvas_lap"], state["canvas_w"],
+                        state["carry"], device="cpu"))
+                assert len(carry) == 5
+            runs.append(tvo.process(frames, poses[0], carry)
+                        + tvo.blended())
+        assert runs[0][1][1] > 0
+        for a, b in zip(*runs):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_port_imports_neither_jax_nor_the_reference():
@@ -149,7 +199,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'pislamfusion_tpu' or m.startswith('pislamfusion_tpu.')]\n"
         "assert len([m for m in sys.modules"
-        " if m.startswith('pislamfusion_tpu_torch.')]) >= 15\n"
+        " if m.startswith('pislamfusion_tpu_torch.')]) >= 20\n"
         "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

@@ -21,6 +21,7 @@ from pislamfusion_tpu_torch.core import camera as tcam
 from pislamfusion_tpu_torch.ops import ba as tba
 from pislamfusion_tpu_torch.ops import lie as tlie
 from pislamfusion_tpu_torch.ops import matching as tmatch
+from torch_port_reference import torch_one_thread  # noqa: F401
 
 
 def _quats(rng, n):

@@ -9,10 +9,12 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from pislamfusion_tpu.ops import image as jim
 from pislamfusion_tpu_torch.ops import image as tim
+from torch_port_reference import torch_one_thread  # noqa: F401
 
 ATOL = 1e-4
 
@@ -53,11 +55,14 @@ def test_pyr_up(shape, out_hw):
 def test_laplacian_pyramid_and_restore(bands):
     x = _img(23, (96, 72, 3))
     tl = tim.build_laplacian_pyramid(torch.from_numpy(x), bands)
-    jl = jim.build_laplacian_pyramid(jnp.asarray(x), bands)
+    # the reference jitted: one compile, not an eager one per operation
+    jl = jax.jit(jim.build_laplacian_pyramid, static_argnums=1)(
+        jnp.asarray(x), bands)
     assert len(tl) == len(jl) == bands + 1
     for t, j in zip(tl, jl):
         _close(t, j)
-    _close(tim.restore_from_laplacian(tl), jim.restore_from_laplacian(jl))
+    _close(tim.restore_from_laplacian(tl),
+           jax.jit(jim.restore_from_laplacian)(jl))
 
 
 @pytest.mark.parametrize("shape, out_hw", [

@@ -1,6 +1,6 @@
-"""The port's three kernels (their plain PyTorch versions, which a CPU
-tensor takes) against the JAX package's Pallas kernels run through the
-Pallas interpreter on the CPU.
+"""The port's kernels (their plain PyTorch versions, which a CPU tensor
+takes) against the JAX package's Pallas kernels run through the Pallas
+interpreter on the CPU.
 
 K1 flat pyramid: within 1e-3 of the interpreted kernel over the whole
 packed buffer (both round the source, the matrices and the row-pass
@@ -10,6 +10,13 @@ K2 patch gather: bit-exact. K3 shear warp: equal tile liveness, dead
 tiles exactly zero, within 5e-3 gray on live pixels whose source point is
 >= 2 px inside the image (the kernel's "high" bf16 hi/lo split keeps ~16
 mantissa bits of the image; the port computes in f32).
+K5 banded stack: within 2e-5 on a 0..1 image (both f32; the kernel's
+dense 128-row tiles and the port's products sum in other orders), its
+composed matrices within 1 f32 ulp of sift._stack_matrices (both cast the
+same float64 products, summed in other orders), and the reference's
+fusability verdict at every octave size of a 1080p frame. K6 bilinear
+grid: within 1e-4 on +-128 samples (the same f32 function, the
+interpreter's one-hot products summing in another order).
 """
 import numpy as np
 import pytest
@@ -21,11 +28,17 @@ from pislamfusion_tpu.ops import image as jim
 from pislamfusion_tpu.ops import shearwarp as jsw
 from pislamfusion_tpu.ops.features import flatpyr_pallas as jfpp
 from pislamfusion_tpu.ops.features import orb as jorb
-from pislamfusion_tpu.ops.features.patchgather import gather_patches_pallas
+from pislamfusion_tpu.ops.features import sift as jsift
+from pislamfusion_tpu.ops.features.patchgather import (bilinear_grid_pallas,
+                                                       gather_patches_pallas)
+from pislamfusion_tpu.ops.stencil_pallas import banded_stack_pallas
 from pislamfusion_tpu_torch.ops import shearwarp as tsw
+from pislamfusion_tpu_torch.ops import stencil as tst
 from pislamfusion_tpu_torch.ops.features import flatpyr as tfp
 from pislamfusion_tpu_torch.ops.features import orb as torb
 from pislamfusion_tpu_torch.ops.features import patchgather as tpg
+from pislamfusion_tpu_torch.ops.features import sift as tsift
+from torch_port_reference import torch_one_thread  # noqa: F401
 
 H1, W1, L1 = 600, 640, 4      # about the smallest frame K1 takes
 
@@ -174,3 +187,79 @@ def test_shearwarp_wrapper_refuses_other_devices():
     with pytest.raises(ValueError):
         tsw.warp_patch(torch.empty((240, 320, 3), device="meta"),
                        torch.empty((3, 3), device="meta"), (256, 256))
+
+
+# the size of tests/test_stencil_pallas.py's stack test
+HS, WS = 256, 320
+
+
+def test_bandedstack_plain_matches_interpreted_kernel():
+    rng = np.random.default_rng(13)
+    img = rng.uniform(0, 1, (HS, WS)).astype(np.float32)
+    mats = jsift._stack_matrices(HS, WS, jsift.SiftParams())
+    ref = np.asarray(banded_stack_pallas(jnp.asarray(img), list(mats[0]),
+                                         list(mats[1]), interpret=True))
+    tabs = tsift._stack_tables(HS, WS, tsift.SiftParams())
+    got = tst.banded_stack(torch.from_numpy(img), tabs).numpy()
+    assert got.shape == ref.shape == (5, HS, WS)
+    assert np.abs(got - ref).max() <= 2e-5
+
+
+def test_bandedstack_tables_match_reference():
+    """The spans, densified, are sift._stack_matrices: the same nonzeros,
+    each within 1 f32 ulp."""
+    mhs, mws = jsift._stack_matrices(HS, WS, jsift.SiftParams())
+    tabs = tsift._stack_tables(HS, WS, tsift.SiftParams())
+    for got, ref in ((tst.dense(tabs.row_start, tabs.row_len, tabs.row_w),
+                      np.stack(mhs)),
+                     (tst.dense(tabs.col_start, tabs.col_len, tabs.col_w),
+                      np.stack(mws))):
+        np.testing.assert_array_equal(got != 0, ref != 0)
+        np.testing.assert_array_max_ulp(got, ref, maxulp=1)
+    # the composed half-widths of the default chain: 4, 9, 15, 23, 33
+    assert (tabs.row_len.max(1) == [9, 19, 31, 47, 67]).all()
+
+
+@pytest.mark.parametrize("h, w, sigma0", [
+    (1080, 1920, 1.6), (540, 960, 1.6), (270, 480, 1.6), (135, 240, 1.6),
+    (256, 640, 12.0),      # bands too wide for the window: no K5
+])
+def test_stack_fusable_matches_reference(h, w, sigma0):
+    fusable = tsift._stack_tables(h, w, tsift.SiftParams(sigma0=sigma0))
+    ref = jsift._stack_matrices(h, w, jsift.SiftParams(sigma0=sigma0))
+    assert (fusable is not None) == (ref is not None)
+    assert (ref is not None) == (sigma0 == 1.6)
+
+
+def test_bandedstack_wrapper_refuses_other_devices():
+    tabs = tsift._stack_tables(HS, WS, tsift.SiftParams())
+    with pytest.raises(ValueError):
+        tst.banded_stack(torch.empty((HS, WS), device="meta"), tabs)
+
+
+def test_bilineargrid_plain_matches_interpreted_kernel():
+    """At the size of tests/test_patchgather.py's grid test, every sample
+    (zero-filled ones beyond the border included)."""
+    rng = np.random.default_rng(2)
+    H, W, K, M = 240, 320, 37, 256
+    img = rng.uniform(-128, 128, (H, W, 2)).astype(np.float32)
+    centers = np.stack([rng.integers(2, W - 2, K), rng.integers(2, H - 2, K)],
+                       -1).astype(np.int32)
+    rel = rng.uniform(-14.5, 14.5, (K, 2, M)).astype(np.float32)
+    assert np.abs(rel).max() < 16           # the kernel's radius
+    ref = np.asarray(bilinear_grid_pallas(
+        jnp.asarray(img), jnp.asarray(centers), jnp.asarray(rel), radius=16,
+        interpret=True))
+    got = tpg.bilinear_grid(torch.from_numpy(img), torch.from_numpy(centers),
+                            torch.from_numpy(rel), radius=16).numpy()
+    assert got.shape == ref.shape == (K, M, 2)
+    assert np.abs(got - ref).max() <= 1e-4
+    px = centers[:, 0:1] + rel[:, 0]
+    assert (px < 0).any() and (got[px < -1] == 0).all()
+
+
+def test_bilineargrid_wrapper_refuses_other_devices():
+    with pytest.raises(ValueError):
+        tpg.bilinear_grid(torch.empty((64, 64, 2), device="meta"),
+                          torch.zeros((3, 2), dtype=torch.int32),
+                          torch.zeros((3, 2, 16)), radius=16)

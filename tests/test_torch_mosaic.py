@@ -19,7 +19,8 @@ import jax.numpy as jnp
 import chip_smoke
 from pislamfusion_tpu.ops import mosaic as jm
 from pislamfusion_tpu_torch.ops import mosaic as tm
-from torch_port_reference import forced_tpu_path
+from torch_port_reference import (forced_tpu_path,  # noqa: F401
+                                  torch_one_thread)
 
 H, W, FX = 600, 640, 600.0
 
@@ -58,8 +59,10 @@ def test_analytic_weight_pyramid(weight_type):
     h = _hc2i()
     live = np.array([[True, False, True], [True, True, False],
                      [False, True, True]])
-    j = jm.analytic_weight_pyramid(jnp.asarray(h), (H, W), (384, 384), 3,
-                                   weight_type, jnp.asarray(live))
+    # the reference jitted: one compile, not an eager one per operation
+    j = jax.jit(jm.analytic_weight_pyramid, static_argnums=(1, 2, 3, 4))(
+        jnp.asarray(h), (H, W), (384, 384), 3, weight_type,
+        jnp.asarray(live))
     t = tm.analytic_weight_pyramid(torch.from_numpy(h), (H, W), (384, 384),
                                    3, weight_type, torch.from_numpy(live))
     assert len(t) == len(j) == 4
@@ -111,7 +114,7 @@ def test_composite_alloc_and_reconstruct():
         p_w = [rng.uniform(0, 1, (512 >> i, 512 >> i, 1)).astype(np.float32)
                for i in range(bands + 1)]
         p_lap[-1] += 128.0
-        j_lap, j_w = jm.composite_patch(
+        j_lap, j_w = jax.jit(jm.composite_patch)(
             j_lap, j_w, [jnp.asarray(a) for a in p_lap],
             [jnp.asarray(a) for a in p_w], jnp.asarray(oyx, jnp.int32))
         tm.composite_patch(t_lap, t_w, [torch.from_numpy(a) for a in p_lap],
@@ -120,6 +123,6 @@ def test_composite_alloc_and_reconstruct():
     for a, b in zip(t_lap + t_w, j_lap + j_w):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     ti, tc = tm.reconstruct_canvas(t_lap, t_w)
-    ji, jc = jm.reconstruct_canvas(list(j_lap), list(j_w))
+    ji, jc = jax.jit(jm.reconstruct_canvas)(list(j_lap), list(j_w))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
     np.testing.assert_allclose(ti.numpy(), np.asarray(ji), atol=1e-3)
