@@ -9,23 +9,31 @@ It builds the port's CUDA kernels from `pislamfusion_tpu_torch/csrc/`
 (one `nvcc` per source, all started together), then:
 
 1. holds each kernel (K1 flat pyramid, K2 patch gather, K3 shear warp, K5
-   banded stack, K6 bilinear grid) against its plain PyTorch version on
-   the card at the shapes of the main paths, and times the kernel, its
-   plain version and one library call that computes the same function
-   where there is one (each the device time of a call, from 20 calls
-   captured in one CUDA graph), beside its bound;
-2. drives both main paths through `FastVO.process` at 1920x1080 over 24
+   banded stack, K6 bilinear grid, K8 banded sandwich) against its plain
+   PyTorch version on the card at the shapes of the main paths (K3 at
+   FastVO's half resolution and at the Map2D engine's full resolution;
+   K8 at the Map2D patch's pyrDown and pyrUp, its weight chain, the
+   canvas pyrUp of `blended()` and FastVO's half-res pyramid), and times
+   the kernel, its plain version and one library call that computes the
+   same function where there is one (each the device time of a call,
+   from 20 calls captured in one CUDA graph), beside its bound;
+2. drives both FastVO paths through `FastVO.process` at 1920x1080 over 24
    frames of bench.py's synthetic survey strip (window radius 60, 5
    bands): ORB-1000 with 8 levels, then SIFT-1000 (4 octaves, 3 scales an
-   octave). For each, every kernel's launch count is set to 0 just before
-   the timed run and read just after; tracking is checked as bench.py
-   does; the run is timed with CUDA events after a warm-up pass; one more
-   pass is broken down by stage; 8 frames run under torch.profiler for
-   the device's busy share, device time by kernel and host time by
-   operator;
+   octave); then the Map2D engines through `create_map2d` / `prepare` /
+   `feed` / `blended` on the same 24 frames (Map2D.Scale 0.5, 5 bands,
+   the shear warp): Type 3 (MultiBand) and Type 4 (Render, EnableSeam,
+   RenderBatch 8). For each path, every kernel's launch count is set to 0
+   just before the timed run and read just after; the run is timed with
+   CUDA events after a warm-up pass; one more pass is broken down by stage
+   and 8 frames run under torch.profiler for the device's busy share,
+   device time by kernel and host time by operator. FastVO's tracking is
+   checked as bench.py does; the Map2D mosaics must cover the union of
+   the frames' footprints;
 3. checks the card's runs against the port's plain CPU runs on a small
-   strip (600x640, 3 frames, 256 features, 3 bands), ORB and SIFT, and
-   prints the kernel table and the result line.
+   strip (600x640): FastVO ORB and SIFT (3 frames, 256 features, 3
+   bands), and Map2D Types 1-4, Type 4 with and without seams (6 frames,
+   3 bands), and prints the kernel table and the result line.
 
 Every failure raises and ends the script with a nonzero exit code. With no
 CUDA device it exits nonzero before printing any result.
@@ -316,10 +324,12 @@ def check_shearwarp(src, homs, patch_hw):
     C = src.shape[2]
     nbytes = src.numel() * 4 + 9 * 4 + ph * pw * C * 4
     ops = ph * pw * (C * 24.0 + 40.0)
+    bound = bound_ms(nbytes, ops, FP32_OPS_PER_S)
+    print(f"  K3 {tuple(src.shape)} -> {patch_hw}: bound {bound[0]:.5f} ms "
+          f"({bound[1]})")
     return _row("shearwarp", "pislamfusion_tpu_torch/csrc/shearwarp.cu",
                 "pislamfusion_tpu/ops/shearwarp.py:505", max(errs),
-                times[0][0], times[0][1],
-                bound_ms(nbytes, ops, FP32_OPS_PER_S), library)
+                times[0][0], times[0][1], bound, library)
 
 
 def check_bandedstack(xs, params):
@@ -428,6 +438,65 @@ def check_bilineargrid(grad, grids):
                 library)
 
 
+def check_bandedsandwich(cases):
+    """K8 on each (label, x, tables) of `cases`: kernel vs plain (equal:
+    the same f32 products and sums in the same order), each timed with
+    its plain version and the library yardstick (two dense f32
+    torch.matmul, TF32 off) beside its bound. Returns the row of the
+    first case and the per-case figures."""
+    import torch
+    from pislamfusion_tpu_torch.ops import stencil
+    errs, figs = [], []
+    for label, x, tabs in cases:
+        ker = stencil.banded_sandwich(x, tabs)
+        pln = stencil.banded_sandwich_plain(x, tabs)
+        torch.cuda.synchronize()
+        err = float((ker - pln).abs().max())
+        exact = bool(torch.equal(ker, pln))
+        errs.append(err)
+        H, W, C = x.shape
+        Ho, Wo = tabs.out_shape
+        print(f"K8 bandedsandwich {label}: {H}x{W}x{C} -> {Ho}x{Wo}x{C}, "
+              f"max |kernel - plain| {err:.3e}, bit-equal {exact} (bound "
+              "1e-4; equal when the order of operations is kept)")
+        if not err <= 1e-4:
+            raise AssertionError(f"K8 {label} disagrees with its plain "
+                                 "version")
+        mh = _dense_rows(tabs.row_start, tabs.row_len, tabs.row_w, H,
+                         x.device)
+        mw = _dense_rows(tabs.col_start, tabs.col_len, tabs.col_w, W,
+                         x.device)
+        x2 = x.reshape(H, W * C)
+        ms, plain, library = timed(
+            f"K8 {label}", lambda: stencil.banded_sandwich(x, tabs),
+            lambda: stencil.banded_sandwich_plain(x, tabs),
+            lambda: torch.matmul(mw, torch.matmul(mh, x2).view(Ho, W, C)))
+        nbytes = (x.numel() + Ho * Wo * C) * 4 + sum(
+            a.nbytes for a in (tabs.row_start, tabs.row_len, tabs.row_w,
+                               tabs.col_start, tabs.col_len, tabs.col_w))
+        ops = 2.0 * C * (float(tabs.row_len.sum()) * W
+                         + float(tabs.col_len.sum()) * Ho)
+        bound = bound_ms(nbytes, ops, FP32_OPS_PER_S)
+        print(f"  K8 {label} work: {nbytes / 1e6:.2f} MB, {ops / 1e9:.4f} "
+              f"GFLOP; bound {bound[0]:.5f} ms ({bound[1]})")
+        figs.append((label, err, ms, plain, library, bound))
+    _, err, ms, plain, library, bound = figs[0]
+    return _row("bandedsandwich",
+                "pislamfusion_tpu_torch/csrc/bandedsandwich.cu",
+                "pislamfusion_tpu/ops/stencil_pallas.py:178", max(errs), ms,
+                plain, bound, library), figs
+
+
+def _dense_rows(start, length, w, n_in, device):
+    """The dense [n_out, n_in] float32 matrix of a set of row spans (for
+    the library yardstick only)."""
+    import torch
+    m = np.zeros((start.shape[0], n_in), np.float32)
+    for r in range(start.shape[0]):
+        m[r, start[r]:start[r] + length[r]] = w[r, :length[r]]
+    return torch.from_numpy(m).to(device)
+
+
 def rotate_about_center(h, theta_deg, hw):
     """h composed with a rotation of the patch by theta about its center."""
     import torch
@@ -469,22 +538,24 @@ def stage_breakdown(vo, frames, pose0):
     return {k: v / frames.shape[0] for k, v in ms.items()}
 
 
-def profile_frames(vo, frames, pose0):
-    """One more pass under torch.profiler: the device's busy share over the
-    pass (the union of its kernels' intervals over the span from the first
-    kernel's start to the last one's end), device time by kernel name and
-    host time by operator."""
+def profile_frames(run, k: int):
+    """run() (k frames) once more under torch.profiler: the device's busy
+    share over the pass (the union of its kernels' intervals over the span
+    from the first kernel's start to the last one's end), device time by
+    kernel name and host time by operator."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        vo.process(frames, pose0)
+        run()
         torch.cuda.synchronize()
     dev, host = {}, {}
     spans = []
     for e in prof.events():
         us = e.time_range.end - e.time_range.start
         if e.device_type.name == "CUDA":
+            if getattr(e, "is_user_annotation", False):
+                continue    # a record_function range, not device work
             dev[e.name] = dev.get(e.name, 0.0) + us
             spans.append((e.time_range.start, e.time_range.end))
         else:
@@ -496,7 +567,6 @@ def profile_frames(vo, frames, pose0):
             busy += t - max(s, end)
             end = t
     window = spans[-1][1] - spans[0][0]
-    k = frames.shape[0]
     print(f"profile of {k} frames: device busy {busy / 1e3:.3f} ms of a "
           f"{window / 1e3:.3f} ms window ({busy / window:.1%}), "
           f"{len(spans)} device activities ({len(spans) / k:.0f} a frame)")
@@ -582,6 +652,20 @@ def main() -> int:
                              "transposed homography")
     k3 = check_shearwarp(src, [("survey", h_hs), ("rotated 100 deg", h_rot)],
                          half)
+    # K3 at the Map2D engine's full resolution: frame 0 of the strip into
+    # the engine's 1536^2 patch, and a map 100 degrees away
+    m2d = make_map2d(3, H, W, fx, poses, dev)
+    _, h_np = m2d._frame_geometry(poses[0].astype(np.float64))
+    full = (m2d.patch_tiles * fv.ELE,) * 2
+    h_full = torch.from_numpy(h_np.astype(np.float32)).to(dev)
+    h_full_rot = rotate_about_center(h_full, 100.0, full)
+    if not (not bool(sw._choose_transpose(h_full))
+            and bool(sw._choose_transpose(h_full_rot))):
+        raise AssertionError("K3 full-res check: expected one plain and one "
+                             "transposed homography")
+    rgb0 = frames[0].to(torch.float32)
+    check_shearwarp(rgb0, [("full-res survey", h_full),
+                           ("full-res rotated 100 deg", h_full_rot)], full)
     # K5 and K6 on frame 0's SIFT detection: octave 0's input, and the
     # packed gradient image with the orientation and descriptor grids
     sp = sift.SiftParams(n_features=1000)
@@ -598,30 +682,69 @@ def main() -> int:
                  ("orientation grid", torch.zeros_like(cx), 4.5),
                  ("descriptor grid", angle, 1.5 * sp.desc_grid / 2.0))]
     k6 = check_bilineargrid(grad, grids)
-    rows = [k1, k2, k3, k5, k6]
+    # K8 at the shapes of the Map2D path (Type 3: the full-res patch's
+    # Laplacian pyrDown and pyrUp, the weight chain, blended()'s pyrUp of
+    # the canvas bands) and of FastVO's half-res feed pyramid
+    from pislamfusion_tpu_torch.ops import mosaic as M
+    patch = sw.warp_patch(rgb0, h_full, full)[0]
+    w0 = M.analytic_weight_pyramid(h_full, (H, W), full, 0)[0]
+    ch, cw = m2d.h_tiles * fv.ELE, m2d.w_tiles * fv.ELE
+    lap1 = torch.from_numpy(np.random.default_rng(8).normal(
+        0, 8, (ch // 2, cw // 2, 3)).astype(np.float32)).to(dev)
+    fv_patch = sw.warp_patch(src, h_hs, half)[0]
+    p0, p1 = full[0], full[0] // 2
+    k8, k8_figs = check_bandedsandwich([
+        (f"Map2D pyrDown {p0}^2x3", patch, im.pyr_tables(
+            "down", p0, p0, p1, p1)),
+        (f"Map2D pyrUp {p1}^2x3", im.pyr_down(patch), im.pyr_tables(
+            "up", p1, p1, p0, p0)),
+        (f"Map2D weight pyrDown {p0}^2x1", w0, im.pyr_tables(
+            "down", p0, p0, p1, p1)),
+        (f"Map2D blended() canvas pyrUp {cw // 2}x{ch // 2}x3", lap1,
+         im.pyr_tables("up", ch // 2, cw // 2, ch, cw)),
+        (f"FastVO pyrDown {half[0]}^2x3", fv_patch, im.pyr_tables(
+            "down", half[0], half[1], half[0] // 2, half[1] // 2)),
+    ])
+    del m2d, patch, w0, lap1, fv_patch
+    rows = [k1, k2, k3, k5, k6, k8]
     wrappers = {"flatpyr": flatpyr.build_flat_pyramid,
                 "patchgather": pg.gather_patches, "shearwarp": sw.warp_patch,
                 "bandedstack": stencil.banded_stack,
-                "bilineargrid": pg.bilinear_grid}
+                "bilineargrid": pg.bilinear_grid,
+                "bandedsandwich": stencil.banded_sandwich}
 
     # ---- phase 2: both main paths, through FastVO.process
     orb_launches = run_main_path(
         "ORB", lambda: make_fastvo(H, W, fx, poses, 1000, 8, 5, dev),
-        frames, poses, wrappers, ("flatpyr", "patchgather", "shearwarp"))
+        frames, poses, wrappers, ("flatpyr", "patchgather", "shearwarp",
+                                  "bandedsandwich"))
     sift_launches = run_main_path(
         "SIFT", lambda: make_fastvo(H, W, fx, poses, 1000, 8, 5, dev,
                                     "sift"),
         frames, poses, wrappers, ("shearwarp", "bandedstack",
-                                  "bilineargrid"))
+                                  "bilineargrid", "bandedsandwich"))
+    # ---- phase 2b: the Map2D engines through create_map2d / prepare /
+    # feed / blended: Type 3 (the default) and Type 4 with seams
+    map2d_launches = run_map2d(
+        "Map2D Type 3 (MultiBand)",
+        lambda: make_map2d(3, H, W, fx, poses, dev), frames, poses,
+        wrappers, ("shearwarp", "bandedsandwich"))
+    run_map2d(
+        "Map2D Type 4 (Render, EnableSeam, RenderBatch 8)",
+        lambda: make_map2d(4, H, W, fx, poses, dev, {
+            "Map2DRender.EnableSeam": 1, "Map2D.RenderBatch": 8}),
+        frames, poses, wrappers, ("shearwarp", "bandedsandwich"))
     for row in rows:
         # each kernel's count from the path it was ported for
-        path = orb_launches if row["name"] in (
-            "flatpyr", "patchgather", "shearwarp") else sift_launches
+        path = (orb_launches if row["name"] in (
+            "flatpyr", "patchgather", "shearwarp") else map2d_launches
+            if row["name"] == "bandedsandwich" else sift_launches)
         row["launches"] = path[row["name"]]
 
     # ---- phase 3: the card against the port's CPU run on a small strip
     for detector in ("orb", "sift"):
         card_vs_cpu(detector, dev)
+    map2d_card_vs_cpu(dev)
 
     print(card)
     print(json.dumps({"kernels": rows}))
@@ -687,8 +810,152 @@ def run_main_path(label, make, frames, poses, wrappers, path_kernels):
     stages = stage_breakdown(vo, frames, pose0)
     print(f"{label} per-stage ms/frame: " + ", ".join(
         f"{k} {v:.3f}" for k, v in stages.items()))
-    profile_frames(vo, frames[:8], poses[0])
+    profile_frames(lambda: vo.process(frames[:8], poses[0]), 8)
     return launches
+
+
+def make_map2d(map2d_type, H, W, fx, poses, device, extra=None):
+    """A prepared port Map2D engine for bench.py's camera and strip, with
+    mosaic_demo.py's Map2D.Scale 0.5 and the engine's other defaults
+    (5 bands, WeightType 0, FastWarp 0, WarpMode as resolved on the
+    device) unless `extra` ({key: value}) sets a key."""
+    from pislamfusion_tpu_torch import Camera
+    from pislamfusion_tpu_torch.core.svar import Svar
+    from pislamfusion_tpu_torch.models.map2d import create_map2d
+    cfg = Svar()
+    cfg.set("Map2D.Scale", "0.5")
+    for k, v in (extra or {}).items():
+        cfg.set(k, str(v))
+    m = create_map2d(map2d_type, cfg, device=device)
+    if not m.prepare(np.array([0, 0, 0, 0, 0, 0, 1.0]),
+                     Camera(W, H, fx, fx, W / 2.0, H / 2.0),
+                     [(None, p) for p in poses]):
+        raise AssertionError("Map2D.prepare refused the strip")
+    return m
+
+
+def _feed_all(m, frames, poses):
+    for k in range(frames.shape[0]):
+        if not m.feed(frames[k], poses[k]):
+            raise AssertionError(f"Map2D skipped frame {k}")
+
+
+def run_map2d(label, make, frames, poses, wrappers, path_kernels):
+    """The Map2D engine's main path at full width: a warm-up pass, then a
+    fresh engine fed every frame and blended, with every launch count of
+    `wrappers` set to 0 just before and read just after; ms/frame of
+    `feed` from CUDA events, `blended()` apart; a per-stage pass (the
+    engine's `mark` hook) and a profiled pass of 8 frames' feeds. Returns
+    {kernel: launches}."""
+    import torch
+    m = make()
+    _feed_all(m, frames, poses)                 # warm-up pass
+    m.blended()
+    del m
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    m = make()
+    for fn in wrappers.values():
+        fn.launches = 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    t0 = time.perf_counter()
+    ev[0].record()
+    _feed_all(m, frames, poses)
+    ev[1].record()
+    img, covered = m.blended()
+    ev[2].record()
+    ev[2].synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    K, H, W = frames.shape[:3]
+    feed_ms = ev[0].elapsed_time(ev[1])
+    peak = torch.cuda.max_memory_allocated()
+    canvas_px = (m.h_tiles * 256, m.w_tiles * 256)
+    canvas_mb = sum(t.numel() * 4 for t in m.canvas_lap + m.canvas_w) / 1e6
+    print(f"{label} {K} frames {W}x{H}: {m.length_pixel:.4f} m/px, patch "
+          f"{m.patch_tiles} tiles ({m.patch_tiles * 256} px), canvas "
+          f"{m.w_tiles}x{m.h_tiles} tiles ({canvas_px[1]}x{canvas_px[0]} px "
+          f"at band 0, {m.bands} bands, {canvas_mb:.1f} MB), warp "
+          f"{m.warp_mode}")
+    print(f"{label} feed {feed_ms / K:.3f} ms/frame ({K / (feed_ms / 1e3):.2f}"
+          f" frames/s, CUDA events), blended() {ev[1].elapsed_time(ev[2]):.3f}"
+          f" ms, host clock {wall * 1e3 / K:.3f} ms/frame with blended")
+    print(f"{label} peak device memory {peak / 2**20:.1f} MiB, "
+          f"{(peak - base) / 2**20:.1f} MiB above the "
+          f"{base / 2**20:.1f} MiB held before the engine was made")
+    print(f"{label} launches in that run: " + ", ".join(
+        f"{k} {n}" for k, n in launches.items()))
+    if min(launches[k] for k in path_kernels) <= 0:
+        raise AssertionError(f"{label}: a kernel of the path was not "
+                             f"launched: {launches}")
+    if m.frames_rendered != K or m.frames_skipped:
+        raise AssertionError(f"{label}: rendered {m.frames_rendered}, "
+                             f"skipped {m.frames_skipped} of {K}")
+    # the covered canvas is the union of the nadir footprints: for a
+    # straight strip, a rectangle of the footprint plus the track
+    fw, fh = W * ALT / m.camera.fx, H * ALT / m.camera.fy
+    span = poses[:, :2].max(0) - poses[:, :2].min(0)
+    union = (fw + span[0]) * (fh + span[1]) / m.length_pixel ** 2
+    share = covered.sum() / union
+    print(f"{label} mosaic {img.shape}, covered {int(covered.sum())} px, "
+          f"{share:.4f} of the footprints' union ({union:.0f} px)")
+    if not (np.isfinite(img).all() and abs(share - 1.0) < 0.02):
+        raise AssertionError(f"{label}: blended mosaic is not finite or "
+                             "does not cover the footprints")
+    evs = []
+
+    def mark(stage):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        evs.append((stage, e))
+
+    m = make()
+    m.mark = mark
+    mark("start")
+    _feed_all(m, frames, poses)
+    m.blended()
+    mark("blended")
+    torch.cuda.synchronize()
+    st = {}
+    for (_, e0), (stage, e1) in zip(evs, evs[1:]):
+        st[stage] = st.get(stage, 0.0) + e0.elapsed_time(e1)
+    print(f"{label} per-stage ms/frame: " + ", ".join(
+        f"{k} {v / K:.3f}" for k, v in st.items() if k != "blended")
+        + f"; blended {st['blended']:.3f} ms once")
+    m = make()
+    profile_frames(lambda: _feed_all(m, frames[:8], poses[:8]), 8)
+    return launches
+
+
+def map2d_card_vs_cpu(dev):
+    """Map2D Types 1-4 (4 with and without EnableSeam) on the small strip
+    (600x640, 6 frames, 3 bands, WarpMode shear, RenderBatch 4 so the
+    last batch has padding slots), the card against the port's CPU run:
+    blended PSNR >= 40 dB over the pixels either covers, coverage equal,
+    frames rendered equal."""
+    h2, w2, fx2 = 600, 640, 600.0
+    fr2, p2 = render_strip(6, h2, w2, fx2, 0.24, 1024, "cpu")
+    for typ, seam in ((1, 0), (2, 0), (3, 0), (4, 0), (4, 1)):
+        runs = []
+        for d in ("cpu", dev):
+            m = make_map2d(typ, h2, w2, fx2, p2, d, {
+                "Map2D.BandNumber": 3, "Map2D.WarpMode": "shear",
+                "Map2D.RenderBatch": 4, "Map2DRender.EnableSeam": seam})
+            _feed_all(m, fr2.to(d), p2)
+            runs.append(m.blended() + (m.frames_rendered,))
+        (i_c, c_c, n_c), (i_g, c_g, n_g) = runs
+        either = c_c | c_g
+        mse = float(((i_c - i_g)[either] ** 2).mean())
+        psnr = 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
+        what = f"Type {typ}" + (" EnableSeam" if seam else "")
+        print(f"Map2D {what} small strip {w2}x{h2}, 6 frames, card vs CPU: "
+              f"mosaic PSNR {psnr:.1f} dB, coverage equal "
+              f"{bool((c_c == c_g).all())} ({c_g.mean():.4f}), rendered "
+              f"{n_g} vs {n_c}")
+        if not (psnr >= 40.0 and (c_c == c_g).all() and n_c == n_g == 6):
+            raise AssertionError(f"Map2D {what}: the card's run disagrees "
+                                 "with the CPU run")
 
 
 def card_vs_cpu(detector, dev):

@@ -9,10 +9,12 @@ for a tensor on the CPU; for a CUDA tensor it launches its kernel or
 raises.
 
 Ported so far: the FastVO track+fuse path (`models/fastvo.py`), with the
-ORB and the SIFT detector.
+ORB and the SIFT detector, and the Map2D orthomosaic engines
+(`models/map2d.py`, Map2D.Type 1-4, `create_map2d`).
 """
 from .core.camera import Camera
 from .core.device import resolve_device
 from .models.fastvo import FastVO
+from .models.map2d import create_map2d
 
-__all__ = ["Camera", "FastVO", "resolve_device"]
+__all__ = ["Camera", "FastVO", "create_map2d", "resolve_device"]

@@ -29,7 +29,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 KERNELS = ("flatpyr", "patchgather", "shearwarp", "bandedstack",
-           "bilineargrid")
+           "bilineargrid", "bandedsandwich")
 
 _LIBS: dict = {}
 

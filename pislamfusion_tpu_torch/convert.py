@@ -1,4 +1,4 @@
-"""FastVO state across the two packages, as numpy.
+"""FastVO and Map2D state across the two packages, as numpy.
 
 The system has no weights. Its state is the canvas pyramid (`canvas_lap`,
 `canvas_w`: one [H >> i, W >> i, 3] and one [H >> i, W >> i, 1] float32
@@ -8,12 +8,21 @@ plane points [N, 3] float32, and the two poses [7] float32 that seed the
 motion model). These functions turn
 the JAX FastVO's arrays, fetched as numpy, into the port's tensors and
 back, so both sides can start from the same canvas and carry.
+
+A Map2D engine's state is its canvas (`canvas_lap`/`canvas_w` for Types 3
+and 4, `acc`/`wsum` for Types 1 and 2, all float32) and its host geometry
+(`min_xy`, `w_tiles`, `h_tiles`, `length_pixel`, `patch_tiles`, `plane`,
+the camera, the frame counters and a RenderMap2D's pending frames).
+`map2d_state_to_numpy` reads it from an engine of either package,
+`map2d_state_from_numpy` puts it on a device and `load_map2d_state` makes
+a port engine continue the same survey from it.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .core.camera import Camera
 from .core.device import resolve_device
 
 # the dtypes of a carry (desc, valid, p3d, pose_prev2, pose_est) by detector
@@ -70,3 +79,103 @@ def load_fastvo_state(vo, state):
         raise ValueError(f"a {vo.detector} FastVO's carry holds {want}, "
                          f"not {got}")
     return tuple(a.to(vo.device) for a in carry)
+
+
+# the canvas arrays of a Map2D state, by engine kind, and their dtype
+MAP2D_CANVAS = {"multiband": ("canvas_lap", "canvas_w"),
+                "weighted": ("acc", "wsum")}
+MAP2D_DTYPE = torch.float32
+_GEOMETRY = ("min_xy", "w_tiles", "h_tiles", "length_pixel", "patch_tiles",
+             "plane", "frames_rendered", "frames_skipped")
+
+
+def _host(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def map2d_state_to_numpy(engine) -> dict:
+    """The state of a prepared Map2D engine of either package (the
+    reference's arrays or the port's tensors) as numpy and Python
+    scalars."""
+    st = {k: _host(getattr(engine, k)) for k in _GEOMETRY}
+    for k in ("w_tiles", "h_tiles", "patch_tiles", "frames_rendered",
+              "frames_skipped"):
+        st[k] = int(st[k])
+    st["length_pixel"] = float(st["length_pixel"])
+    c = engine.camera
+    st["camera"] = (int(c.width), int(c.height), float(c.fx), float(c.fy),
+                    float(c.cx), float(c.cy))
+    kind = "multiband" if hasattr(engine, "canvas_lap") else "weighted"
+    a, b = MAP2D_CANVAS[kind]
+    if kind == "multiband":
+        st[a] = [_host(x) for x in getattr(engine, a)]
+        st[b] = [_host(x) for x in getattr(engine, b)]
+    else:
+        st[a], st[b] = _host(getattr(engine, a)), _host(getattr(engine, b))
+    st["pending"] = [(_host(img), np.asarray(pp, np.float64))
+                     for img, pp in getattr(engine, "_pending", [])]
+    return st
+
+
+def map2d_state_from_numpy(state: dict, device=None) -> dict:
+    """A numpy Map2D state (`map2d_state_to_numpy`) with its canvas and
+    pending frames as tensors on `device` (None means `cuda`). The canvas
+    must be float32."""
+    device = resolve_device(device)
+    out = dict(state)
+    for kind, names in MAP2D_CANVAS.items():
+        for k in names:
+            if k not in state:
+                continue
+            arrs = state[k] if kind == "multiband" else [state[k]]
+            bad = [a.dtype for a in arrs if a.dtype != np.float32]
+            if bad:
+                raise ValueError(f"a Map2D {k} holds float32, not {bad[0]}")
+            ts = [torch.from_numpy(np.array(a)).to(device) for a in arrs]
+            out[k] = ts if kind == "multiband" else ts[0]
+    out["pending"] = [(torch.from_numpy(np.array(img)).to(device), pp)
+                      for img, pp in state.get("pending", [])]
+    return out
+
+
+def load_map2d_state(engine, state: dict):
+    """Make a port Map2D engine (from `create_map2d`, prepared or not)
+    continue the survey of `state` (`map2d_state_from_numpy`): its
+    geometry, camera, counters, canvas and pending frames are replaced.
+    Returns the engine."""
+    kind = "multiband" if hasattr(engine, "canvas_lap") else "weighted"
+    a, b = MAP2D_CANVAS[kind]
+    if a not in state:
+        raise ValueError(f"a {type(engine).__name__} takes a state with "
+                         f"{a}/{b}")
+    if kind == "multiband" and len(state[a]) != engine.bands + 1:
+        raise ValueError(f"the state has {len(state[a]) - 1} bands, the "
+                         f"engine {engine.bands}")
+    for t in (state[a] + state[b] if kind == "multiband"
+              else [state[a], state[b]]):
+        if t.dtype != MAP2D_DTYPE:
+            raise ValueError(f"a Map2D canvas holds {MAP2D_DTYPE}, not "
+                             f"{t.dtype}")
+    with engine._lock:
+        engine.camera = Camera(*state["camera"])
+        engine.plane = np.asarray(state["plane"], np.float64)
+        engine.min_xy = np.asarray(state["min_xy"], np.float64)
+        engine.length_pixel = float(state["length_pixel"])
+        for k in ("w_tiles", "h_tiles", "patch_tiles", "frames_rendered",
+                  "frames_skipped"):
+            setattr(engine, k, int(state[k]))
+        if kind == "multiband":
+            setattr(engine, a, [t.to(engine.device) for t in state[a]])
+            setattr(engine, b, [t.to(engine.device) for t in state[b]])
+        else:
+            setattr(engine, a, state[a].to(engine.device))
+            setattr(engine, b, state[b].to(engine.device))
+        if hasattr(engine, "_pending"):
+            engine._pending = [(img.to(engine.device),
+                                np.asarray(pp, np.float64))
+                               for img, pp in state.get("pending", [])]
+        elif state.get("pending"):
+            raise ValueError("only a RenderMap2D takes pending frames")
+    return engine

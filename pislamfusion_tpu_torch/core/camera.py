@@ -1,8 +1,9 @@
-"""Pinhole camera: the intrinsics FastVO reads.
+"""Pinhole camera: the intrinsics FastVO and the Map2D engines read.
 
-Port of the fields of pislamfusion_tpu/core/camera.py:34-41 (the `Camera`
-base class, GSLAM/GSLAM/core/Camera.h PinHole). The ATAN, OpenCV and
-OCAM models and the camera's projection methods are not ported yet.
+Port of the fields and `is_valid` of pislamfusion_tpu/core/camera.py:34-73
+(the `Camera` base class, GSLAM/GSLAM/core/Camera.h PinHole). The ATAN,
+OpenCV and OCAM models and the camera's projection methods are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -18,3 +19,7 @@ class Camera:
     fy: float = 1.0
     cx: float = 0.0
     cy: float = 0.0
+
+    def is_valid(self):
+        return (self.width > 0 and self.height > 0 and self.fx != 0
+                and self.fy != 0)

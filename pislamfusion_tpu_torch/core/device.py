@@ -4,6 +4,10 @@
 unless the caller names another, and an error, never a silent CPU run,
 when the card is asked for and absent.
 
+`upload` moves a host array to a device without waiting for the stream
+(through pinned memory on a CUDA device), for the per-frame host
+geometry of the Map2D engines.
+
 `device_const` keeps tensors that never change (pad indices, pattern
 tables, fixed matrices), made once per (key, device): a host->device copy
 of a freshly made tensor waits for the stream, so making them per frame
@@ -11,6 +15,7 @@ would stall the frame loop.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _CACHE: dict = {}
@@ -37,3 +42,16 @@ def device_const(key, device, make):
         t = make().to(device)
         _CACHE[k] = t
     return t
+
+
+def upload(a, device, dtype=None):
+    """A host array (or a tensor) as a tensor on `device`, cast to `dtype`
+    (None keeps its own). A host array bound for a CUDA device is cast on
+    the host and copied through pinned memory, so the copy does not wait
+    for the stream."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+    if t.device.type != "cpu" or device.type != "cuda":
+        return t.to(device=device, dtype=dtype)
+    if dtype is not None:
+        t = t.to(dtype)
+    return t.contiguous().pin_memory().to(device, non_blocking=True)

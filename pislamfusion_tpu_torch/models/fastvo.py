@@ -5,7 +5,8 @@ and either detector of the reference. Per frame: rgb->gray, feature
 extraction, a windowed match against the previous frame's plane points,
 an 8-iteration pose-only Huber LM, plane re-unprojection, then the mosaic
 feed (canvas->image homography, K3 shear warp at half resolution,
-Laplacian pyramid, analytic weights, max-weight composite).
+Laplacian pyramid and weight pyramid through K8, analytic weights,
+max-weight composite).
 
 - detector "orb" (the reference's default here): K1 flat pyramid, FAST +
   NMS + per-cell selection, K2 patch gather, IC angle, binned BRIEF;
@@ -147,7 +148,8 @@ class FastVO(torch.nn.Module):
         patch_px = self.patch_tiles * ELE
         rgb3 = rgb if rgb.ndim == 3 else rgb[..., None].expand(-1, -1, 3)
         p_lap, p_w = M.patch_pyramids(rgb3, Hc2i, (patch_px, patch_px),
-                                      self.bands)
+                                      self.bands, half_res=True,
+                                      warp="shear")
         oyx = torch.stack([origin_t[1], origin_t[0]]) * ELE
         M.composite_patch(self.canvas_lap, self.canvas_w, p_lap, p_w, oyx)
 

@@ -1,13 +1,27 @@
 """Image ops on [..., H, W, C] float32 tensors: OpenCV-compatible
-pyrDown/pyrUp, Laplacian pyramids, bilinear resize, homography grids.
+pyrDown/pyrUp, Laplacian pyramids, bilinear resize, bilinear sampling and
+homography warps.
 
-Port of pislamfusion_tpu/ops/image.py (:86-94, :304, :352-498, :548-567,
-:603). The reference has two formulations of each stencil: banded MXU
-matmuls (on the TPU) and f32 shift-and-add slices (on every other
-backend). The port follows the f32 shift-and-add semantics and the exact
-`[::2, ::2]` of `decimate2`; the banded-MXU and bf16-chain branches were
-TPU layout devices and are not carried over. The numpy matrix builders
-are the port's own copies (`_blur_matrix` feeds K5's tables).
+Port of pislamfusion_tpu/ops/image.py (:86-126, :304, :352-581, :603).
+The reference has two formulations of each separable stencil: banded
+matrix products (`_matmul_sep`, on the TPU, whose fused form is the
+banded-sandwich kernel) and f32 shift-and-add slices (on every other
+backend).
+
+- `pyr_down` and `pyr_up` take the banded-matrix form on the reference's
+  own matrices (`_dec_matrix`, `_up_matrix`) through K8
+  (`stencil.banded_sandwich`: the CUDA kernel on the card, its plain
+  span-by-span version on the CPU), and with them the Laplacian pyramid
+  build and restore.
+- `gaussian_blur` keeps the f32 shift-and-add; `decimate2` the exact
+  `[::2, ::2]`; `resize_bilinear` two f32 products with the reference's
+  interpolation matrices. SIFT's parity rests on these, and K5 serves its
+  octave stacks.
+- `bilinear_sample` and `warp_perspective` are the reference's gather
+  warps, in plain PyTorch (the reference has no kernel for them).
+
+The numpy matrix builders are the port's own copies (`_blur_matrix` feeds
+K5's tables, `_dec_matrix` and `_up_matrix` K8's).
 """
 from __future__ import annotations
 
@@ -17,6 +31,7 @@ import numpy as np
 import torch
 
 from ..core.device import device_const
+from . import stencil
 
 # OpenCV's 5-tap pyramid kernel [1,4,6,4,1]/16
 _PYR_K = np.array([1.0, 4.0, 6.0, 4.0, 1.0], np.float32) / 16.0
@@ -93,37 +108,59 @@ def decimate2(img):
     return img[::2, ::2]
 
 
+def _dec_matrix(n: int, taps: tuple, mode: str) -> np.ndarray:
+    """[ceil(n/2), n] banded matrix: row j = kernel centered at 2j, the
+    fused blur+decimate of cv::pyrDown (reference image.py:97-109)."""
+    r = (len(taps) - 1) // 2
+    on = (n + 1) // 2
+    m = np.zeros((on, n), np.float32)
+    for j in range(on):
+        for i, w in enumerate(taps):
+            m[j, _reflect_idx(2 * j + i - r, n, mode)] += w
+    return m
+
+
+def _up_matrix(n: int, oh: int, taps: tuple) -> np.ndarray:
+    """[oh, n] banded matrix reproducing cv::pyrUp's zero-stuff + 2x-gain
+    blur: row p sums 2*k[i] over stuffed indices q = p+i-r with q even,
+    reflect-folded on the 2n buffer (reference image.py:112-126)."""
+    r = (len(taps) - 1) // 2
+    m = np.zeros((oh, n), np.float32)
+    for p in range(oh):
+        for i, w in enumerate(taps):
+            q = _reflect_idx(p + i - r, 2 * n, "reflect")
+            if q % 2 == 0:
+                m[p, q // 2] += 2.0 * w
+    return m
+
+
+@functools.lru_cache(maxsize=None)
+def pyr_tables(kind: str, h: int, w: int, oh: int, ow: int):
+    """K8's tables of pyrDown ("down", [h, w] -> [ceil(h/2), ceil(w/2)])
+    or pyrUp ("up", [h, w] -> [oh, ow]) on the reference's matrices."""
+    taps = tuple(float(v) for v in _PYR_K)
+    if kind == "down":
+        mh = _dec_matrix(h, taps, "reflect")
+        mw = _dec_matrix(w, taps, "reflect")
+    else:
+        mh, mw = _up_matrix(h, oh, taps), _up_matrix(w, ow, taps)
+    return stencil.sandwich_tables(("pyr", kind, h, w, oh, ow), mh, mw)
+
+
 def pyr_down(img):
-    """cv::pyrDown: 5-tap blur then decimate by 2 (ceil sizes); only the
-    even rows/cols are ever computed."""
-    kv = [float(v) for v in _PYR_K]
-    r = 2
-    x = img
-    for ax in (img.ndim - 3, img.ndim - 2):
-        n = x.shape[ax]
-        on = (n + 1) // 2
-        xp = _pad_axis(x, ax, r, r + 1, "reflect")
-        acc = None
-        for i, w in enumerate(kv):
-            sl = [slice(None)] * x.ndim
-            sl[ax] = slice(i, i + 2 * on - 1, 2)
-            t = xp[tuple(sl)] * w
-            acc = t if acc is None else acc + t
-        x = acc
-    return x
+    """cv::pyrDown: 5-tap blur then decimate by 2 (ceil sizes), as the
+    banded sandwich of `_dec_matrix` on both axes (K8)."""
+    H, W = img.shape[-3], img.shape[-2]
+    return stencil.banded_sandwich(
+        img, pyr_tables("down", H, W, (H + 1) // 2, (W + 1) // 2))
 
 
 def pyr_up(img, out_hw=None):
-    """cv::pyrUp: zero-upsample by 2 then 5-tap blur with 4x gain."""
-    lead = img.shape[:-3]
-    H, W, C = img.shape[-3:]
+    """cv::pyrUp: zero-upsample by 2 then 5-tap blur with 4x gain, as the
+    banded sandwich of `_up_matrix` on both axes (K8)."""
+    H, W = img.shape[-3], img.shape[-2]
     oh, ow = out_hw if out_hw is not None else (2 * H, 2 * W)
-    x = img.reshape((-1, H, W, C))
-    x = torch.stack([x, torch.zeros_like(x)], 2).reshape(-1, 2 * H, W, C)
-    x = torch.stack([x, torch.zeros_like(x)], 3).reshape(-1, 2 * H, 2 * W,
-                                                         C)
-    up = _sep_conv(x, _PYR_K * 2.0)
-    return up.reshape(lead + (2 * H, 2 * W, C))[..., :oh, :ow, :]
+    return stencil.banded_sandwich(img, pyr_tables("up", H, W, oh, ow))
 
 
 def build_gaussian_pyramid(img, levels: int):
@@ -195,6 +232,55 @@ def homography_grid(h_mat, out_hw, offset=(0.0, 0.0)):
     qz = h[2, 0] * xs + h[2, 1] * ys + h[2, 2]
     qz = torch.where(qz.abs() < 1e-12, torch.full_like(qz, 1e-12), qz)
     return torch.stack([qx / qz, qy / qz], -1)
+
+
+def _reflect101(x, n):
+    """BORDER_REFLECT_101 fold of float coordinates into [0, n-1]."""
+    period = 2.0 * (n - 1.0)
+    xm = torch.remainder(x.abs(), period)
+    return torch.minimum(xm, period - xm)
+
+
+def bilinear_sample(img, xy, fill: float = 0.0, border: str = "constant"):
+    """Sample img [H, W, C] at subpixel xy [..., 2] (reference
+    image.py:507-546). border: "constant" (outside -> fill), "replicate"
+    (clamp) or "reflect" (BORDER_REFLECT_101, the reference mosaic warp's,
+    MultiBandMap2DCPU.cpp:451). Returns (values [..., C], valid [...]):
+    valid marks in-image samples whatever the border mode."""
+    H, W, C = img.shape
+    x, y = xy[..., 0], xy[..., 1]
+    if border == "reflect":
+        x = _reflect101(x, W)
+        y = _reflect101(y, H)
+    valid = ((xy[..., 0] >= 0) & (xy[..., 0] <= W - 1)
+             & (xy[..., 1] >= 0) & (xy[..., 1] <= H - 1))
+    # one flat index per tap; (x0, y0) clamped to (W-2, H-2) keeps every
+    # +1/+W neighbour in range, and fx/fy clamp so edge taps interpolate
+    x0i = torch.clamp(torch.floor(x).to(torch.int64), 0, W - 2)
+    y0i = torch.clamp(torch.floor(y).to(torch.int64), 0, H - 2)
+    fx = torch.clamp(x[..., None] - x0i[..., None].to(x.dtype), 0.0, 1.0)
+    fy = torch.clamp(y[..., None] - y0i[..., None].to(y.dtype), 0.0, 1.0)
+    flat = img.reshape(H * W, C)
+    base = (y0i * W + x0i).reshape(-1)
+    shp = tuple(xy.shape[:-1]) + (C,)
+    v00 = flat.index_select(0, base).reshape(shp)
+    v01 = flat.index_select(0, base + 1).reshape(shp)
+    v10 = flat.index_select(0, base + W).reshape(shp)
+    v11 = flat.index_select(0, base + W + 1).reshape(shp)
+    v = (v00 * (1 - fx) * (1 - fy) + v01 * fx * (1 - fy)
+         + v10 * (1 - fx) * fy + v11 * fx * fy)
+    if border == "constant":
+        v = torch.where(valid[..., None], v, torch.full_like(v, fill))
+    return v, valid
+
+
+def warp_perspective(img, h_dst2src, out_hw, offset=(0.0, 0.0),
+                     fill: float = 0.0, border: str = "constant"):
+    """Warp img [H, W, C] into an [Ho, Wo, C] image (reference
+    image.py:569-581): `h_dst2src` maps destination pixels (shifted by
+    `offset`) to source pixels. Returns (warped, valid)."""
+    grid = homography_grid(h_dst2src, out_hw, offset)
+    return bilinear_sample(img, grid, fill, border)
 
 
 def rgb_to_gray(img):

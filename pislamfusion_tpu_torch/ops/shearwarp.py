@@ -189,7 +189,9 @@ def _params(img, h_patch2img, patch_hw, tile, max_scale):
 
 def warp_patch_plain(img, h_patch2img, patch_hw: Tuple[int, int],
                      tile: int = TILE, max_scale: float = 2.2):
-    """Plain PyTorch version: the two passes as gathers over every tile."""
+    """Plain PyTorch version: the two passes evaluated for each output
+    pixel, as the kernel does: pass 2's three window columns, and at each
+    the pass-1 value from three window rows."""
     ph, pw = patch_hw
     nty, ntx = ph // tile, pw // tile
     H, W, C = img.shape
@@ -204,26 +206,27 @@ def warp_patch_plain(img, h_patch2img, patch_hw: Tuple[int, int],
     # source row/col extents of the (possibly transposed) image
     sh = torch.where(tr, W, H)
     sw = torch.where(tr, H, W)
-    wy = prm.window[:, 0].to(torch.int64)
-    wx = prm.window[:, 1].to(torch.int64)
-    xs = torch.arange(WW, device=img.device)
-    col = torch.minimum(wx[:, None] + xs[None, :], sw - 1)       # [nt, WW]
+    wy = prm.window[:, 0].to(torch.int64)[:, None, None]
+    wx = prm.window[:, 1].to(torch.int64)[:, None, None]
     flat = img.reshape(H * W, C)
-    w1 = _tap_weights(g1[:, :, None] + f1[:, None, :])           # [nt,T,WW]
-    I = None
-    for j in range(3):
-        r = torch.remainder(m1[:, :, None] + j + n1[:, None, :], WH)
-        row = torch.minimum(wy[:, None, None] + r, sh - 1)
-        c = col[:, None, :].expand_as(row)
-        idx = torch.where(tr, c * W + row, row * W + c)
-        t = w1[j][..., None] * flat[idx]                         # [nt,T,WW,C]
-        I = t if I is None else I + t
     w2 = _tap_weights(f2[:, :, None] + g2[:, None, :])           # [nt,T,T]
     out = None
     for i in range(3):
+        # the window column pass 2 reads for output (v, u), and its phase
         x = torch.remainder(m2[:, None, :] + i + n2[:, :, None], WW)
-        v = torch.gather(I, 2, x[..., None].expand(-1, -1, -1, C))
-        t = w2[i][..., None] * v
+        w1 = _tap_weights(g1[:, :, None] + torch.gather(f1, 1, x.flatten(
+            1)).view_as(x))
+        n1x = torch.gather(n1, 1, x.flatten(1)).view_as(x)
+        c = torch.minimum(wx + x, sw - 1)
+        iv = None
+        for j in range(3):
+            r = torch.remainder(m1[:, :, None] + j + n1x, WH)
+            row = torch.minimum(wy + r, sh - 1)
+            idx = torch.where(tr, c * W + row, row * W + c)
+            t = w1[j][..., None] * flat.index_select(
+                0, idx.reshape(-1)).view(idx.shape + (C,))       # [nt,T,T,C]
+            iv = t if iv is None else iv + t
+        t = w2[i][..., None] * iv
         out = t if out is None else out + t
     out = torch.where(prm.live[:, None, None, None], out,
                       torch.zeros_like(out))

@@ -1,10 +1,11 @@
-"""K5: a stack of banded sandwiches of one image,
-out[p] = mhs[p] @ x @ mws[p]^T.
+"""The banded-stencil kernels: K5, a stack of banded sandwiches of one
+image, out[p] = mhs[p] @ x @ mws[p]^T, and K8, one banded sandwich per
+channel, out[..., c] = mh @ x[..., c] @ mw^T.
 
-Replaces pislamfusion_tpu/ops/stencil_pallas.py `banded_stack_pallas` (its
-`pallas_call` in `_stack_call` at :338), which SIFT's octave stack calls
-(sift.py:99-105) for every octave with min(h, w) >= 256 whose bands fit
-`stack_fusable`.
+K5 replaces pislamfusion_tpu/ops/stencil_pallas.py `banded_stack_pallas`
+(its `pallas_call` in `_stack_call` at :338), which SIFT's octave stack
+calls (sift.py:99-105) for every octave with min(h, w) >= 256 whose bands
+fit `stack_fusable`.
 
 Function: for the P composed chain-blur operators of one octave,
 M_p = B_p @ ... @ B_1 (B_i the reflect-folded blur matrix of the i-th
@@ -30,6 +31,17 @@ Precision.HIGHEST.
 
 The host tables are built without any dense n^3 product: each banded blur
 matrix is applied in turn to a band of half-width sum(r_i) in float64.
+
+K8 replaces `banded_sandwich_pallas` (its `pallas_call` in `_sandwich_call`
+at :178), the fused form of ops/image.py's `_matmul_sep`. The port routes
+every pyrDown and pyrUp through it (image.pyr_down / pyr_up, on the
+reference's own `_dec_matrix` / `_up_matrix`), for any size: the
+reference's `can_fuse` was the TPU's VMEM budget and is not carried.
+`SandwichTables` keep each matrix row's nonzero span; the plain version
+(`banded_sandwich_plain`) gathers the span tap by tap and sums in tap
+order, rows first, and the kernel (`csrc/bandedsandwich.cu`) does the
+same arithmetic in the same order, so the two are equal. Neither forms a
+dense [n, n] product.
 """
 from __future__ import annotations
 
@@ -291,3 +303,165 @@ def banded_stack(x, tabs: StackTables):
 
 
 banded_stack.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K8: one banded sandwich per channel
+# ---------------------------------------------------------------------------
+
+def row_spans(m: np.ndarray):
+    """Each row's nonzero span of a banded [n_out, n_in] matrix: (start
+    [n_out] int32, length [n_out] int32, weights [n_out, K] float32, the
+    span's entries, zero past its length; K the longest span). Zeros
+    inside a span are kept as taps."""
+    nz = m != 0
+    live = nz.any(1)
+    n = m.shape[1]
+    first = np.where(live, nz.argmax(1), 0)
+    last = np.where(live, n - 1 - nz[:, ::-1].argmax(1), -1)
+    length = last - first + 1
+    k = np.arange(max(1, int(length.max())))
+    w = np.take_along_axis(m, np.minimum(first[:, None] + k, n - 1), 1)
+    w = np.where(k[None, :] < length[:, None], w, 0.0)
+    return (first.astype(np.int32), length.astype(np.int32),
+            w.astype(np.float32))
+
+
+@dataclasses.dataclass(frozen=True)
+class SandwichTables:
+    """Host tables of one sandwich mh [Ho, H], mw [Wo, W]: each row's
+    nonzero span per matrix, and per 32-row (32-column) output tile of the
+    kernel the first input row (column) and the count its spans cover."""
+    key: tuple
+    in_shape: tuple          # (H, W)
+    row_start: np.ndarray    # [Ho] int32
+    row_len: np.ndarray      # [Ho] int32
+    row_w: np.ndarray        # [Ho, KR] float32
+    col_start: np.ndarray    # [Wo] int32
+    col_len: np.ndarray      # [Wo] int32
+    col_w: np.ndarray        # [Wo, KC] float32
+    tile_r0: np.ndarray      # [ceil(Ho / 32)] int32
+    tile_rn: np.ndarray
+    tile_c0: np.ndarray      # [ceil(Wo / 32)] int32
+    tile_cn: np.ndarray
+
+    @property
+    def out_shape(self):
+        return self.row_start.shape[0], self.col_start.shape[0]
+
+
+def sandwich_tables(key, mh: np.ndarray, mw: np.ndarray) -> SandwichTables:
+    """The tables of mh @ x @ mw^T; `key` names the pair (device copies of
+    the tables are cached under it)."""
+    rs, rl, rw = row_spans(mh)
+    cs, cl, cw = row_spans(mw)
+    tr0, trn = _tile_windows(rs[None], rl[None])
+    tc0, tcn = _tile_windows(cs[None], cl[None])
+    return SandwichTables(key, (mh.shape[1], mw.shape[1]), rs, rl, rw,
+                          cs, cl, cw, tr0, trn, tc0, tcn)
+
+
+def _span_taps(start, length, k: int) -> np.ndarray:
+    """[k, n_out] int64: the input index of each output's j-th tap, held
+    at the span's last index past its length (where the weight is 0)."""
+    j = np.arange(k)[:, None]
+    return np.minimum(start[None, :] + j,
+                      start[None, :] + np.maximum(length[None, :], 1) - 1
+                      ).astype(np.int64)
+
+
+def _span_apply(x, axis: int, taps, w):
+    """out = m @ x along `axis` (negative) from m's spans: one gather of
+    every output's k-th tap at a time, summed in tap order from the first
+    product (f32, each product and sum rounded on its own)."""
+    acc = None
+    shape = [1] * x.ndim
+    shape[axis] = taps.shape[1]
+    for k in range(taps.shape[0]):
+        t = x.index_select(axis, taps[k]) * w[:, k].reshape(shape)
+        acc = t if acc is None else acc + t
+    return acc
+
+
+def _sandwich_device(tabs: SandwichTables, device):
+    def up(name, a):
+        return device_const(("sandwich", name, tabs.key), device,
+                            lambda: torch.from_numpy(np.ascontiguousarray(a)))
+    return {
+        "row_start": up("row_start", tabs.row_start),
+        "row_len": up("row_len", tabs.row_len),
+        "row_w": up("row_w", tabs.row_w),
+        "col_start": up("col_start", tabs.col_start),
+        "col_len": up("col_len", tabs.col_len),
+        "col_w": up("col_w", tabs.col_w),
+        "tile_r0": up("tile_r0", tabs.tile_r0),
+        "tile_rn": up("tile_rn", tabs.tile_rn),
+        "tile_c0": up("tile_c0", tabs.tile_c0),
+        "tile_cn": up("tile_cn", tabs.tile_cn),
+        "row_taps": up("row_taps", _span_taps(
+            tabs.row_start, tabs.row_len, tabs.row_w.shape[1])),
+        "col_taps": up("col_taps", _span_taps(
+            tabs.col_start, tabs.col_len, tabs.col_w.shape[1])),
+    }
+
+
+def banded_sandwich_plain(x, tabs: SandwichTables):
+    """Plain PyTorch version: x [..., H, W, C] float32 -> [..., Ho, Wo, C],
+    the row matrix's spans first, then the column matrix's."""
+    d = _sandwich_device(tabs, x.device)
+    t = _span_apply(x, -3, d["row_taps"], d["row_w"])
+    return _span_apply(t, -2, d["col_taps"], d["col_w"])
+
+
+SMEM_LIMIT = 232448     # bytes of shared memory a block may use on Hopper
+
+
+def banded_sandwich(x, tabs: SandwichTables):
+    """x: [..., H, W, C] float32. Returns [..., Ho, Wo, C] float32, mh @ x
+    @ mw^T per channel for the matrices of `tabs`. CPU tensors take the
+    plain version; CUDA tensors launch the kernel (one launch for all
+    leading dimensions)."""
+    if x.device.type == "cpu":
+        return banded_sandwich_plain(x, tabs)
+    if x.device.type != "cuda":
+        raise ValueError(f"banded_sandwich: unsupported device {x.device}")
+    if x.dtype != torch.float32 or x.ndim < 3 \
+            or tuple(x.shape[-3:-1]) != tabs.in_shape:
+        raise ValueError(f"banded_sandwich: x must be float32 [..., "
+                         f"{tabs.in_shape[0]}, {tabs.in_shape[1]}, C], not "
+                         f"{x.dtype} {tuple(x.shape)}")
+    lead = tuple(x.shape[:-3])
+    H, W, C = x.shape[-3:]
+    Ho, Wo = tabs.out_shape
+    xb = x.reshape((-1, H, W, C)).contiguous()
+    B = xb.shape[0]
+    sr = int(tabs.tile_rn.max())
+    pitch = int(tabs.tile_cn.max()) * C
+    smem = (sr + TILE) * pitch * 4
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"banded_sandwich: a {TILE}-px tile's slab needs "
+                         f"{smem} bytes of shared memory, more than "
+                         f"{SMEM_LIMIT}")
+    d = _sandwich_device(tabs, x.device)
+    out = torch.empty((B, Ho, Wo, C), dtype=torch.float32, device=x.device)
+    fn = _build.load("bandedsandwich").bandedsandwich_launch
+    fn.restype = ctypes.c_int
+    V, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [V, I, I, I, I, I, I, V, V, V, I, V, V, V, I, V, V, V, V,
+                   I, I, V, V]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(xb.data_ptr(), B, H, W, C, Ho, Wo,
+                 d["row_start"].data_ptr(), d["row_len"].data_ptr(),
+                 d["row_w"].data_ptr(), tabs.row_w.shape[1],
+                 d["col_start"].data_ptr(), d["col_len"].data_ptr(),
+                 d["col_w"].data_ptr(), tabs.col_w.shape[1],
+                 d["tile_r0"].data_ptr(), d["tile_rn"].data_ptr(),
+                 d["tile_c0"].data_ptr(), d["tile_cn"].data_ptr(), sr, pitch,
+                 out.data_ptr(), stream)
+    _build.check(err, "bandedsandwich")
+    banded_sandwich.launches += 1
+    return out.reshape(lead + (Ho, Wo, C))
+
+
+banded_sandwich.launches = 0

@@ -1,9 +1,13 @@
 """The port's image ops against the JAX package's, on the CPU.
 
 The JAX package runs its f32 shift-and-add stencils there (the banded
-MXU spelling is for the TPU only), which is what the port follows.
+matrix spelling is for the TPU only). The port's blur follows that
+spelling; its pyrDown and pyrUp take the banded one through K8's plain
+version (the reference's matrices, each row's span summed in tap order).
 Tolerance 1e-4 gray on 0..255 images: the same f32 taps, summed in
-another order where the frameworks fuse differently.
+another order (pyrDown/pyrUp measured 3.1e-5). The gather warps
+(`bilinear_sample`, `warp_perspective`) within 1e-3 gray: the same f32
+formula, whose sample fractions the two frameworks may round apart.
 """
 import numpy as np
 import pytest
@@ -105,3 +109,33 @@ def test_homography_grid(offset):
     j = jim.homography_grid(jnp.asarray(h), (48, 64), offset)
     np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-6,
                                atol=1e-4)
+
+
+_H_WARP = np.array([[0.9, -0.1, 20.0], [0.12, 1.05, -7.0],
+                    [1e-4, -2e-4, 1.0]], np.float32)
+
+
+@pytest.mark.parametrize("border", ["constant", "replicate", "reflect"])
+def test_bilinear_sample(border):
+    rng = np.random.default_rng(26)
+    x = _img(26, (40, 50, 3))
+    xy = rng.uniform(-8, 58, (30, 20, 2)).astype(np.float32)
+    fn = jax.jit(jim.bilinear_sample, static_argnums=(2, 3))
+    jv, jok = fn(jnp.asarray(x), jnp.asarray(xy), 7.0, border)
+    tv, tok = tim.bilinear_sample(torch.from_numpy(x), torch.from_numpy(xy),
+                                  7.0, border)
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+    assert 0.2 < tok.numpy().mean() < 0.95
+    _close(tv, jv, atol=1e-3)
+
+
+def test_warp_perspective():
+    x = _img(27, (48, 64, 3))
+    fn = jax.jit(jim.warp_perspective, static_argnums=(2, 3, 4, 5))
+    jv, jok = fn(jnp.asarray(x), jnp.asarray(_H_WARP), (40, 56),
+                 (3.0, -2.0), 0.0, "reflect")
+    tv, tok = tim.warp_perspective(torch.from_numpy(x),
+                                   torch.from_numpy(_H_WARP), (40, 56),
+                                   (3.0, -2.0), 0.0, "reflect")
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+    _close(tv, jv, atol=1e-3)

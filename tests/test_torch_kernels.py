@@ -17,6 +17,11 @@ same float64 products, summed in other orders), and the reference's
 fusability verdict at every octave size of a 1080p frame. K6 bilinear
 grid: within 1e-4 on +-128 samples (the same f32 function, the
 interpreter's one-hot products summing in another order).
+K8 banded sandwich: within 2e-5 of the output's largest magnitude (about
+5e-3 gray at 255) on 0..255 images, for the reference's pyrDown, pyrUp,
+blur and resize matrices (the interpreter's dense 128-blocks and the
+port's spans sum in other orders: 2 f32 ulps, ~3e-5 gray, measured); its
+spans rebuild each matrix exactly.
 """
 import numpy as np
 import pytest
@@ -31,7 +36,10 @@ from pislamfusion_tpu.ops.features import orb as jorb
 from pislamfusion_tpu.ops.features import sift as jsift
 from pislamfusion_tpu.ops.features.patchgather import (bilinear_grid_pallas,
                                                        gather_patches_pallas)
-from pislamfusion_tpu.ops.stencil_pallas import banded_stack_pallas
+from pislamfusion_tpu.ops.stencil_pallas import (banded_sandwich_pallas,
+                                                 banded_stack_pallas,
+                                                 can_fuse)
+from pislamfusion_tpu_torch.ops import image as tim
 from pislamfusion_tpu_torch.ops import shearwarp as tsw
 from pislamfusion_tpu_torch.ops import stencil as tst
 from pislamfusion_tpu_torch.ops.features import flatpyr as tfp
@@ -263,3 +271,65 @@ def test_bilineargrid_wrapper_refuses_other_devices():
         tpg.bilinear_grid(torch.empty((64, 64, 2), device="meta"),
                           torch.zeros((3, 2), dtype=torch.int32),
                           torch.zeros((3, 2, 16)), radius=16)
+
+
+_PYR_TAPS = (0.0625, 0.25, 0.375, 0.25, 0.0625)
+_BLUR_TAPS = tuple(float(v) for v in jim.gaussian_kernel1d(2.0, 3))
+# (input shape, the matrix pair), as tests/test_stencil_pallas.py builds
+# them, at smaller sizes
+_SANDWICHES = {
+    "pyrdown_c3": ((120, 136, 3), lambda: (
+        jim._dec_matrix(120, _PYR_TAPS, "reflect"),
+        jim._dec_matrix(136, _PYR_TAPS, "reflect"))),
+    "pyrup_c1": ((60, 68, 1), lambda: (jim._up_matrix(60, 120, _PYR_TAPS),
+                                       jim._up_matrix(68, 136, _PYR_TAPS))),
+    "blur_c1": ((100, 130, 1), lambda: (
+        jim._blur_matrix(100, _BLUR_TAPS, "reflect"),
+        jim._blur_matrix(130, _BLUR_TAPS, "reflect"))),
+    "resize_c1": ((120, 160, 1), lambda: (jim._resize_matrix(120, 100),
+                                          jim._resize_matrix(160, 133))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SANDWICHES))
+def test_bandedsandwich_plain_matches_interpreted_kernel(case):
+    shape, mats = _SANDWICHES[case]
+    mh, mw = mats()
+    x = np.random.default_rng(14).uniform(0, 255, shape).astype(np.float32)
+    assert can_fuse(mh, mw, shape[2])
+    ref = np.asarray(banded_sandwich_pallas(jnp.asarray(x), mh, mw,
+                                            interpret=True))
+    tabs = tst.sandwich_tables(("test", case), mh, mw)
+    got = tst.banded_sandwich(torch.from_numpy(x), tabs).numpy()
+    assert got.shape == ref.shape == (mh.shape[0], mw.shape[0], shape[2])
+    assert np.abs(got - ref).max() <= 2e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("n, on", [(7, 4), (120, 60), (1536, 768),
+                                   (768, 1536), (9, 17)])
+def test_bandedsandwich_spans_rebuild_the_reference_matrices(n, on):
+    """The port's pyrDown/pyrUp matrices are the reference's, and their
+    spans densified are those matrices exactly."""
+    if on < n:
+        m = jim._dec_matrix(n, _PYR_TAPS, "reflect")
+        np.testing.assert_array_equal(
+            tim._dec_matrix(n, _PYR_TAPS, "reflect"), m)
+        tabs = tim.pyr_tables("down", n, n, on, on)
+    else:
+        m = jim._up_matrix(n, on, _PYR_TAPS)
+        np.testing.assert_array_equal(tim._up_matrix(n, on, _PYR_TAPS), m)
+        tabs = tim.pyr_tables("up", n, n, on, on)
+    for start, length, w in ((tabs.row_start, tabs.row_len, tabs.row_w),
+                             (tabs.col_start, tabs.col_len, tabs.col_w)):
+        got = np.zeros_like(m)
+        for r in range(m.shape[0]):
+            got[r, start[r]:start[r] + length[r]] = w[r, :length[r]]
+        assert (w[np.arange(w.shape[1])[None, :] >= length[:, None]]
+                == 0).all()
+        np.testing.assert_array_equal(got, m)
+
+
+def test_bandedsandwich_wrapper_refuses_other_devices():
+    tabs = tim.pyr_tables("down", 64, 64, 32, 32)
+    with pytest.raises(ValueError):
+        tst.banded_sandwich(torch.empty((64, 64, 3), device="meta"), tabs)

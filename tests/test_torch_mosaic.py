@@ -85,7 +85,7 @@ def test_patch_pyramids_shear_half_res(monkeypatch):
         jl = [np.asarray(a) for a in jl]
         jw = [np.asarray(a) for a in jw]
     tl, tw = tm.patch_pyramids(torch.from_numpy(rgb), torch.from_numpy(h),
-                               patch_hw, bands)
+                               patch_hw, bands, half_res=True, warp="shear")
     assert len(tl) == len(jl) == len(tw) == len(jw) == bands + 1
     assert np.all(tl[0].numpy() == 0) and np.all(jl[0] == 0)
     # live tiles of the half-res warp, at each band's resolution

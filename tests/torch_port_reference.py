@@ -8,10 +8,10 @@ extraction kernels and the banded sandwich stay off, as they ship), runs
 every Pallas kernel in interpret mode (`interpret=True`, as the package's
 own kernel tests run them: the kernel is discharged into XLA operations
 and compiled, which runs the kernels many times faster than the TPU
-interpreter of `pltpu.force_tpu_interpret_mode`), and clears the
-`orb_detect` and `sift_detect` jit caches on the way in and out so that
-no trace made under the forced gates reaches another test of the same
-worker.
+interpreter of `pltpu.force_tpu_interpret_mode`), and clears the jit
+caches of `orb_detect`, `sift_detect` and the mosaic composites (which
+reach the shear-warp kernel) on the way in and out so that no trace made
+under the forced gates reaches another test of the same worker.
 """
 import contextlib
 import pickle
@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from pislamfusion_tpu.ops import image as im
+from pislamfusion_tpu.ops import mosaic
 from pislamfusion_tpu.ops.features import orb, sift
 
 
@@ -43,7 +44,9 @@ def forced_tpu_path(monkeypatch):
     monkeypatch.setattr(im, "_PALLAS_STENCIL",
                         {"sandwich": False, "stack": True})
     monkeypatch.setenv("PISLAM_PAIR_STEP", "0")
-    jitted = (orb.orb_detect, sift.sift_detect)
+    jitted = (orb.orb_detect, sift.sift_detect, mosaic.composite_frame,
+              mosaic.composite_frames_batch,
+              mosaic.composite_frames_batch_seamed)
     for fn in jitted:
         fn.clear_cache()
     try:
