@@ -8,19 +8,22 @@ NVIDIA H100 and the CUDA toolkit:
 It builds the port's CUDA kernels from `pislamfusion_tpu_torch/csrc/`
 (one `nvcc` per source, all started together), then:
 
-1. holds each kernel (K1 flat pyramid, K2 patch gather, K3 shear warp, K5
-   banded stack, K6 bilinear grid, K8 banded sandwich) against its plain
-   PyTorch version on the card at the shapes of the main paths (K3 at
+1. holds each kernel (K1 flat pyramid, K2 patch gather, K3 shear warp, K4
+   fused FAST+NMS+select, K5 banded stack, K6 bilinear grid, K7 packed
+   pyramid, K8 banded sandwich) against its plain PyTorch version on the
+   card at the shapes of the main paths (K4 on K1's 8-level 1080p
+   pyramid and on K7's 4-level pyramid of the small strip; K3 at
    FastVO's half resolution and at the Map2D engine's full resolution;
    K8 at the Map2D patch's pyrDown and pyrUp, its weight chain, the
    canvas pyrUp of `blended()` and FastVO's half-res pyramid), and times
    the kernel, its plain version and one library call that computes the
    same function where there is one (each the device time of a call,
    from 20 calls captured in one CUDA graph), beside its bound;
-2. drives both FastVO paths through `FastVO.process` at 1920x1080 over 24
+2. drives the FastVO paths through `FastVO.process` at 1920x1080 over 24
    frames of bench.py's synthetic survey strip (window radius 60, 5
-   bands): ORB-1000 with 8 levels, then SIFT-1000 (4 octaves, 3 scales an
-   octave); then the Map2D engines through `create_map2d` / `prepare` /
+   bands): ORB-1000 with 8 levels (the flat pyramid K1 and K4), the same
+   with pyramid="packed" (K7 and K4), then SIFT-1000 (4 octaves, 3 scales
+   an octave); then the Map2D engines through `create_map2d` / `prepare` /
    `feed` / `blended` on the same 24 frames (Map2D.Scale 0.5, 5 bands,
    the shear warp): Type 3 (MultiBand) and Type 4 (Render, EnableSeam,
    RenderBatch 8). For each path, every kernel's launch count is set to 0
@@ -31,9 +34,10 @@ It builds the port's CUDA kernels from `pislamfusion_tpu_torch/csrc/`
    checked as bench.py does; the Map2D mosaics must cover the union of
    the frames' footprints;
 3. checks the card's runs against the port's plain CPU runs on a small
-   strip (600x640): FastVO ORB and SIFT (3 frames, 256 features, 3
-   bands), and Map2D Types 1-4, Type 4 with and without seams (6 frames,
-   3 bands), and prints the kernel table and the result line.
+   strip (600x640): FastVO ORB (both pyramids) and SIFT (3 frames, 256
+   features, 3 bands), and Map2D Types 1-4, Type 4 with and without
+   seams (6 frames, 3 bands), and prints the kernel table and the result
+   line.
 
 Every failure raises and ends the script with a nonzero exit code. With no
 CUDA device it exits nonzero before printing any result.
@@ -50,10 +54,13 @@ import time
 import numpy as np
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
-# dense bf16 / fp32 (non-tensor) operations per second
+# dense bf16 / fp32 (non-tensor) operations per second; the fp32 peak
+# counts a fused multiply-add as two operations, so f32 instructions that
+# do one operation each (sub, min, max) run at half of it
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
 FP32_OPS_PER_S = 67e12
+FP32_SINGLE_OPS_PER_S = FP32_OPS_PER_S / 2
 
 ALT = 120.0          # bench.py: flying height (m)
 STEP_M = 4.0         # bench.py: straight strip, 4 m per frame
@@ -128,15 +135,16 @@ def strip_geometry(H: int, W: int, fx: float, poses):
 
 
 def make_fastvo(H, W, fx, poses, n_features, n_levels, bands, device,
-                detector="orb"):
-    """A port FastVO with bench.py's camera and canvas geometry."""
+                detector="orb", **kw):
+    """A port FastVO with bench.py's camera and canvas geometry; `kw` are
+    further FastVO arguments (pyramid, fast_warp, warp_mode, ...)."""
     from pislamfusion_tpu_torch import Camera, FastVO
     lp, patch_tiles, canvas_tiles, min_xy = strip_geometry(H, W, fx, poses)
     cam = Camera(W, H, fx, fx, W / 2.0, H / 2.0)
     return FastVO(cam, min_xy, canvas_tiles, lp, bands=bands,
                   n_features=n_features, n_levels=n_levels,
                   window_radius=60.0, patch_tiles=patch_tiles,
-                  detector=detector, device=device)
+                  detector=detector, device=device, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -242,6 +250,112 @@ def check_flatpyr(gray, params):
                      "pislamfusion_tpu/ops/features/flatpyr_pallas.py:227",
                      err, ms, plain, bound_ms(nbytes, ops, BF16_OPS_PER_S),
                      library)
+
+
+def check_fastselect(cases, params):
+    """K4 on each (label, packed, offs, shapes) of `cases`: kernel vs plain
+    (equal: 0 differing cells in cv2d and ci2d); timed on the first."""
+    import torch
+    from pislamfusion_tpu_torch.ops.features import fastselect as fs
+    from pislamfusion_tpu_torch.ops.features import orb
+    cell, thr, border = params.cell, params.min_threshold, orb.EDGE_THRESHOLD
+    errs = []
+
+    def views(packed, offs, shapes):
+        return [packed[oy:oy + lh, ox:ox + lw]
+                for (lh, lw), (ox, oy) in zip(shapes, offs)]
+    for label, packed, offs, shapes in cases:
+        ker = fs.fast_cell_winners(packed, offs, shapes, cell, thr, border)
+        pln = fs.fast_cell_winners_plain(views(packed, offs, shapes), cell,
+                                         thr, border)
+        torch.cuda.synchronize()
+        n_cells = sum(v.numel() for v, _ in pln)
+        bad = sum(int((kv != pv).sum()) + int((ki != pi).sum())
+                  for (kv, ki), (pv, pi) in zip(ker, pln))
+        err = max(float((kv - pv).abs().max()) for (kv, _), (pv, _) in
+                  zip(ker, pln))
+        errs.append(err)
+        print(f"K4 fastselect {label}: {len(shapes)} levels, "
+              f"{sum(h * w for h, w in shapes) / 1e6:.2f} Mpx, {n_cells} "
+              f"cells of {cell} px, {sum(int((v > 0).sum()) for v, _ in pln)}"
+              f" with a corner: {bad} differing cv2d/ci2d entries, max "
+              f"|kernel - plain| {err:.3e} (bound: equal)")
+        if bad:
+            raise AssertionError(f"K4 {label} disagrees with its plain "
+                                 "version")
+    _, packed, offs, shapes = cases[0]
+    vs = views(packed, offs, shapes)
+    ms, plain, _ = timed(
+        "K4", lambda: fs.fast_cell_winners(packed, offs, shapes, cell, thr,
+                                           border),
+        lambda: fs.fast_cell_winners_plain(vs, cell, thr, border))
+    # bytes: each level pixel read once, the two outputs, the tables;
+    # operations: the FAST score of each unmasked pixel (16 differences,
+    # 64 for the 3-tap minima and maxima, 96 for the arcs, 3 to finish),
+    # NMS (9) and the cell reduction (2) of every pixel
+    plan = fs.winner_plan(tuple(shapes), tuple(offs), cell)
+    px = sum(h * w for h, w in shapes)
+    live = sum(max(h - 2 * border, 0) * max(w - 2 * border, 0)
+               for h, w in shapes)
+    nbytes = px * 4 + plan.n_cells * 8 + plan.levels.nbytes \
+        + plan.blocks.nbytes
+    ops = live * 179.0 + px * 11.0
+    bound = bound_ms(nbytes, ops, FP32_SINGLE_OPS_PER_S)
+    print(f"  K4 work: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations "
+          f"({live / 1e6:.2f} Mpx scored); bound {bound[0]:.5f} ms "
+          f"({bound[1]})")
+    return _row("fastselect", "pislamfusion_tpu_torch/csrc/fastselect.cu",
+                "pislamfusion_tpu/ops/features/fastselect.py:191", max(errs),
+                ms, plain, bound, None)
+
+
+def check_packedpyr(gray, params, r):
+    """K7 at the main path's shape: kernel vs plain on the whole buffer,
+    every level's (lh + 2r, lw + 2r) block and the zeros around them
+    (equal: both sum each pixel's taps as one chain of fused
+    multiply-adds), timed with its bound."""
+    import torch
+    from pislamfusion_tpu_torch.ops.features import packedpyr as pp
+    H, W = gray.shape
+    L, sf = params.n_levels, params.scale_factor
+    if not pp.pyramid_available(H, W, L, sf, r):
+        raise AssertionError(f"K7 does not take {H}x{W} / {L} levels")
+    ker = pp.build_packed_pyramid(gray, L, sf, r)
+    pln = pp.build_packed_pyramid_plain(gray, L, sf, r)
+    torch.cuda.synchronize()
+    t = pp.packed_tables(H, W, L, sf, r)
+    plan = t.plan
+    errs = []
+    live = torch.zeros(ker.shape, dtype=torch.bool, device=ker.device)
+    for lvl, (lh, lw) in enumerate(plan.shapes):
+        b = plan.bases[lvl]
+        live[b:b + lh + 2 * r, :lw + 2 * r] = True
+        errs.append(float((ker[b:b + lh + 2 * r, :lw + 2 * r]
+                           - pln[b:b + lh + 2 * r, :lw + 2 * r])
+                          .abs().max()))
+    exact = bool(torch.equal(ker, pln))
+    err = max(errs)
+    print(f"K7 packedpyr {H}x{W} L={L} r={r}: packed {tuple(ker.shape)}, "
+          f"max |kernel - plain| per level block "
+          f"{', '.join(f'{e:.3e}' for e in errs)}; whole buffer equal "
+          f"{exact} (bound: equal, zeros outside the blocks)")
+    if not (exact and not bool(ker[~live].any())):
+        raise AssertionError("K7 disagrees with its plain version")
+    ms, plain, _ = timed(
+        "K7", lambda: pp.build_packed_pyramid(gray, L, sf, r),
+        lambda: pp.build_packed_pyramid_plain(gray, L, sf, r))
+    tabs = sum(a.nbytes for f in ("row_start", "row_len", "row_w",
+                                  "col_start", "col_len", "col_w")
+               for a in getattr(t, f))
+    nbytes = H * W * 4 + plan.total_rows * plan.wpl * 4 + tabs
+    ops = 2.0 * sum(float(cl.sum()) * float((rl + 1).sum())
+                    for rl, cl in zip(t.row_len, t.col_len))
+    bound = bound_ms(nbytes, ops, FP32_OPS_PER_S)
+    print(f"  K7 work: {nbytes / 1e6:.2f} MB, {ops / 1e9:.4f} GFLOP; bound "
+          f"{bound[0]:.5f} ms ({bound[1]}); {L - 1} launches a call")
+    return ker, _row("packedpyr", "pislamfusion_tpu_torch/csrc/packedpyr.cu",
+                     "pislamfusion_tpu/ops/features/pyramid_pallas.py:279",
+                     err, ms, plain, bound, None)
 
 
 def check_patchgather(packed, pxy, radius):
@@ -589,7 +703,8 @@ def main() -> int:
     from pislamfusion_tpu_torch.ops import image as im
     from pislamfusion_tpu_torch.ops import shearwarp as sw
     from pislamfusion_tpu_torch.ops import stencil
-    from pislamfusion_tpu_torch.ops.features import flatpyr, orb, sift
+    from pislamfusion_tpu_torch.ops.features import (fastselect, flatpyr,
+                                                     orb, packedpyr, sift)
     from pislamfusion_tpu_torch.ops.features import patchgather as pg
 
     # fp32 products in full fp32 (the reference's HIGHEST): TF32 off for
@@ -634,11 +749,30 @@ def main() -> int:
     views = [packed[b + plan.cell:b + plan.cell + lh,
                     plan.pad_left:plan.pad_left + lw]
              for b, (lh, lw) in zip(plan.bases, plan.shapes)]
-    picks = orb.select_levels(views, params)
+    offs = [(plan.pad_left, b + plan.cell) for b in plan.bases]
+    picks = orb.select_levels(packed, views, offs, params)
     pxy = torch.cat([xy + torch.tensor(
         [[plan.pad_left, b + plan.cell]], dtype=torch.int32, device=dev)
         for (xy, _, _), b in zip(picks, plan.bases)])
     k2 = check_patchgather(packed, pxy, orb._GATHER_R)
+    # K7 at 1080p, and K4 on K1's and K7's 1080p pyramids (the same level
+    # shapes at other pitches and offsets) and on K7's pyramid of the
+    # small strip's frame 0 (600x640, 4 levels)
+    r = orb._GATHER_R
+    packed7, k7 = check_packedpyr(gray, params, r)
+    plan7 = packedpyr.pyramid_plan(H, W, params.n_levels,
+                                   params.scale_factor, r)
+    fr_s, _ = render_strip(1, 600, 640, 600.0, 0.24, 1024, dev)
+    gray_s = im.rgb_to_gray(fr_s[0].to(torch.float32))
+    p_s = orb.OrbParams(n_features=256, n_levels=4)
+    plan_s = packedpyr.pyramid_plan(600, 640, 4, p_s.scale_factor, r)
+    k4 = check_fastselect([
+        ("1080p K1 pyramid", packed, offs, plan.shapes),
+        ("1080p K7 pyramid", packed7, [(r, b + r) for b in plan7.bases],
+         plan7.shapes),
+        ("600x640 K7 pyramid", packedpyr.build_packed_pyramid(
+            gray_s, 4, p_s.scale_factor, r),
+         [(r, b + r) for b in plan_s.bases], plan_s.shapes)], params)
     src = im.pyr_down(frames[0].to(torch.float32))
     _, Hc2i = vo._patch_homography(pose0)
     half = (vo.patch_tiles * fv.ELE // 2,) * 2
@@ -706,18 +840,26 @@ def main() -> int:
             "down", half[0], half[1], half[0] // 2, half[1] // 2)),
     ])
     del m2d, patch, w0, lap1, fv_patch
-    rows = [k1, k2, k3, k5, k6, k8]
+    rows = [k1, k2, k3, k4, k5, k6, k7, k8]
     wrappers = {"flatpyr": flatpyr.build_flat_pyramid,
                 "patchgather": pg.gather_patches, "shearwarp": sw.warp_patch,
+                "fastselect": fastselect.fast_cell_winners,
                 "bandedstack": stencil.banded_stack,
                 "bilineargrid": pg.bilinear_grid,
+                "packedpyr": packedpyr.build_packed_pyramid,
                 "bandedsandwich": stencil.banded_sandwich}
 
-    # ---- phase 2: both main paths, through FastVO.process
+    # ---- phase 2: the main paths, through FastVO.process
     orb_launches = run_main_path(
         "ORB", lambda: make_fastvo(H, W, fx, poses, 1000, 8, 5, dev),
-        frames, poses, wrappers, ("flatpyr", "patchgather", "shearwarp",
-                                  "bandedsandwich"))
+        frames, poses, wrappers, ("flatpyr", "fastselect", "patchgather",
+                                  "shearwarp", "bandedsandwich"))
+    packed_launches = run_main_path(
+        "ORB", lambda: make_fastvo(H, W, fx, poses, 1000, 8, 5, dev,
+                                   pyramid="packed"),
+        frames, poses, wrappers, ("packedpyr", "fastselect", "patchgather",
+                                  "shearwarp", "bandedsandwich"),
+        variant=" (pyramid=packed)")
     sift_launches = run_main_path(
         "SIFT", lambda: make_fastvo(H, W, fx, poses, 1000, 8, 5, dev,
                                     "sift"),
@@ -737,13 +879,16 @@ def main() -> int:
     for row in rows:
         # each kernel's count from the path it was ported for
         path = (orb_launches if row["name"] in (
-            "flatpyr", "patchgather", "shearwarp") else map2d_launches
-            if row["name"] == "bandedsandwich" else sift_launches)
+            "flatpyr", "patchgather", "shearwarp", "fastselect")
+            else packed_launches if row["name"] == "packedpyr"
+            else map2d_launches if row["name"] == "bandedsandwich"
+            else sift_launches)
         row["launches"] = path[row["name"]]
 
     # ---- phase 3: the card against the port's CPU run on a small strip
-    for detector in ("orb", "sift"):
-        card_vs_cpu(detector, dev)
+    card_vs_cpu("orb", dev)
+    card_vs_cpu("orb", dev, pyramid="packed")
+    card_vs_cpu("sift", dev)
     map2d_card_vs_cpu(dev)
 
     print(card)
@@ -754,11 +899,13 @@ def main() -> int:
     return 0
 
 
-def run_main_path(label, make, frames, poses, wrappers, path_kernels):
+def run_main_path(label, make, frames, poses, wrappers, path_kernels,
+                  variant=""):
     """A warm-up pass, then a fresh FastVO timed over the frames with every
     launch count of `wrappers` ({kernel: wrapper}) set to 0 just before
     and read just after; tracking gates, a per-stage pass and a profiled
-    pass. Returns {kernel: launches}."""
+    pass. `label` is the detector ("ORB" or "SIFT"), `variant` what the
+    lines add to it. Returns {kernel: launches}."""
     import torch
     vo = make()
     vo.process(frames, poses[0])                 # warm-up pass
@@ -783,11 +930,13 @@ def run_main_path(label, make, frames, poses, wrappers, path_kernels):
     what = (f"ORB-{p.n_features}, {p.n_levels} levels" if label == "ORB"
             else f"SIFT-{p.n_features}, {p.n_octaves} octaves, "
             f"{p.scales_per_octave} scales")
-    print(f"{label} FastVO.process {K} frames {W}x{H} ({what}, {vo.bands} "
-          f"bands, canvas {vo.canvas_tiles} tiles, patch {vo.patch_tiles} "
+    print(f"{label} FastVO.process{variant} {K} frames {W}x{H} ({what}, "
+          f"{vo.bands} bands, canvas {vo.canvas_tiles} tiles, patch "
+          f"{vo.patch_tiles} "
           f"tiles): {K / (dev_ms / 1e3):.2f} frames/s, {dev_ms / K:.3f} "
           f"ms/frame (CUDA events; host clock {wall * 1e3 / K:.3f} "
           "ms/frame)")
+    label += variant
     print(f"{label} peak device memory {peak / 2**20:.1f} MiB")
     print(f"{label} n_match {n_match.tolist()}")
     drift = float(np.linalg.norm(est[-1, :3] - poses[-1, :3]))
@@ -958,14 +1107,15 @@ def map2d_card_vs_cpu(dev):
                                  "with the CPU run")
 
 
-def card_vs_cpu(detector, dev):
+def card_vs_cpu(detector, dev, **kw):
     """The port on the card against its plain CPU run: 600x640, 3 frames,
-    256 features, 3 bands (ORB: 4 levels)."""
+    256 features, 3 bands (ORB: 4 levels); `kw` further FastVO
+    arguments."""
     h2, w2, fx2 = 600, 640, 600.0
     fr2, p2 = render_strip(3, h2, w2, fx2, 0.24, 1024, "cpu")
     runs = []
     for d in ("cpu", dev):
-        v = make_fastvo(h2, w2, fx2, p2, 256, 4, 3, d, detector)
+        v = make_fastvo(h2, w2, fx2, p2, 256, 4, 3, d, detector, **kw)
         e, n = v.process(fr2, p2[0])
         runs.append((e, n) + v.blended())
     (e_c, n_c, i_c, c_c), (e_g, n_g, i_g, c_g) = runs
@@ -973,12 +1123,13 @@ def card_vs_cpu(detector, dev):
     mse = float(((i_c - i_g)[both] ** 2).mean())
     psnr = 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
     dt = float(np.abs(e_c[:, :3] - e_g[:, :3]).max())
-    print(f"{detector.upper()} small strip {w2}x{h2}, 3 frames, card vs CPU: "
+    what = detector.upper() + "".join(f" ({k}={v})" for k, v in kw.items())
+    print(f"{what} small strip {w2}x{h2}, 3 frames, card vs CPU: "
           f"n_match {n_g.tolist()} vs {n_c.tolist()}, max |dt| {dt:.2e} m, "
           f"mosaic PSNR {psnr:.1f} dB, coverage agreement "
           f"{(c_c == c_g).mean():.5f}")
     if not (np.abs(n_c - n_g).max() <= 3 and dt <= 5e-3 and psnr >= 40.0):
-        raise AssertionError(f"{detector}: the card's run disagrees with the "
+        raise AssertionError(f"{what}: the card's run disagrees with the "
                              "CPU run")
 
 

@@ -28,8 +28,8 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
-KERNELS = ("flatpyr", "patchgather", "shearwarp", "bandedstack",
-           "bilineargrid", "bandedsandwich")
+KERNELS = ("flatpyr", "patchgather", "shearwarp", "fastselect",
+           "bandedstack", "bilineargrid", "packedpyr", "bandedsandwich")
 
 _LIBS: dict = {}
 

@@ -9,13 +9,17 @@ motion model). These functions turn
 the JAX FastVO's arrays, fetched as numpy, into the port's tensors and
 back, so both sides can start from the same canvas and carry.
 
-A Map2D engine's state is its canvas (`canvas_lap`/`canvas_w` for Types 3
-and 4, `acc`/`wsum` for Types 1 and 2, all float32) and its host geometry
-(`min_xy`, `w_tiles`, `h_tiles`, `length_pixel`, `patch_tiles`, `plane`,
-the camera, the frame counters and a RenderMap2D's pending frames).
+A Map2D engine's state is its kind (`map2d_type`, the Map2D.Type 1-4 of
+its class; `bands`, 0 for the single-band Types 1 and 2; `weight_type`),
+its canvas (`canvas_lap`/`canvas_w` for Types 3 and 4, `acc`/`wsum` for
+Types 1 and 2, all float32) and its host geometry (`min_xy`, `w_tiles`,
+`h_tiles`, `length_pixel`, `patch_tiles`, `plane`, the camera, the frame
+counters and a RenderMap2D's pending frames). The kind travels with the
+canvas because the same arrays mean different things: Type 1's `acc`
+holds the sum of weight times colour, Type 2's the blended colour.
 `map2d_state_to_numpy` reads it from an engine of either package,
 `map2d_state_from_numpy` puts it on a device and `load_map2d_state` makes
-a port engine continue the same survey from it.
+a port engine of the same kind continue the same survey from it.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 
 from .core.camera import Camera
 from .core.device import resolve_device
+from .ops.mosaic import ELE_PIXELS
 
 # the dtypes of a carry (desc, valid, p3d, pose_prev2, pose_est) by detector
 CARRY_DTYPES = {
@@ -85,6 +90,9 @@ def load_fastvo_state(vo, state):
 MAP2D_CANVAS = {"multiband": ("canvas_lap", "canvas_w"),
                 "weighted": ("acc", "wsum")}
 MAP2D_DTYPE = torch.float32
+# the Map2D.Type of each engine class (the class names of both packages)
+MAP2D_TYPES = {"WeightedMap2D": 1, "WeightedGPUMap2D": 2,
+               "MultiBandMap2D": 3, "RenderMap2D": 4}
 _GEOMETRY = ("min_xy", "w_tiles", "h_tiles", "length_pixel", "patch_tiles",
              "plane", "frames_rendered", "frames_skipped")
 
@@ -95,11 +103,21 @@ def _host(x):
     return np.asarray(x)
 
 
+def _map2d_kind(engine) -> tuple:
+    """(Map2D.Type, bands, weight_type) of an engine of either package."""
+    name = type(engine).__name__
+    if name not in MAP2D_TYPES:
+        raise ValueError(f"{name} is not a Map2D engine of Type 1-4")
+    return (MAP2D_TYPES[name], int(getattr(engine, "bands", 0)),
+            int(engine.weight_type))
+
+
 def map2d_state_to_numpy(engine) -> dict:
     """The state of a prepared Map2D engine of either package (the
     reference's arrays or the port's tensors) as numpy and Python
     scalars."""
     st = {k: _host(getattr(engine, k)) for k in _GEOMETRY}
+    st["map2d_type"], st["bands"], st["weight_type"] = _map2d_kind(engine)
     for k in ("w_tiles", "h_tiles", "patch_tiles", "frames_rendered",
               "frames_skipped"):
         st[k] = int(st[k])
@@ -140,21 +158,40 @@ def map2d_state_from_numpy(state: dict, device=None) -> dict:
     return out
 
 
+def _canvas_shapes(state: dict, bands: int):
+    """The (colour, weight) shapes of each canvas band of a state's
+    geometry: one band for Types 1 and 2, bands + 1 for Types 3 and 4."""
+    h = int(state["h_tiles"]) * ELE_PIXELS
+    w = int(state["w_tiles"]) * ELE_PIXELS
+    return [((h >> i, w >> i, 3), (h >> i, w >> i, 1))
+            for i in range(bands + 1)]
+
+
 def load_map2d_state(engine, state: dict):
     """Make a port Map2D engine (from `create_map2d`, prepared or not)
     continue the survey of `state` (`map2d_state_from_numpy`): its
     geometry, camera, counters, canvas and pending frames are replaced.
-    Returns the engine."""
+    The engine must be of the state's kind (Map2D.Type, bands,
+    weight_type) and the canvas must fit the state's tiles. Returns the
+    engine."""
     kind = "multiband" if hasattr(engine, "canvas_lap") else "weighted"
     a, b = MAP2D_CANVAS[kind]
-    if a not in state:
-        raise ValueError(f"a {type(engine).__name__} takes a state with "
-                         f"{a}/{b}")
-    if kind == "multiband" and len(state[a]) != engine.bands + 1:
-        raise ValueError(f"the state has {len(state[a]) - 1} bands, the "
-                         f"engine {engine.bands}")
-    for t in (state[a] + state[b] if kind == "multiband"
-              else [state[a], state[b]]):
+    want = _map2d_kind(engine)
+    got = tuple(state.get(k) for k in ("map2d_type", "bands",
+                                       "weight_type"))
+    if got != want:
+        raise ValueError(
+            f"a {type(engine).__name__} ({a}/{b}; Map2D.Type, bands, "
+            f"weight_type {want}) does not take the state of an engine "
+            f"with {got}")
+    canvas = (list(zip(state[a], state[b])) if kind == "multiband"
+              else [(state[a], state[b])])
+    shapes = _canvas_shapes(state, want[1])
+    if [tuple(t.shape) for pair in canvas for t in pair] != [
+            s for pair in shapes for s in pair]:
+        raise ValueError(f"the state's {a}/{b} do not fit its "
+                         f"{state['h_tiles']}x{state['w_tiles']} tiles")
+    for t in (t for pair in canvas for t in pair):
         if t.dtype != MAP2D_DTYPE:
             raise ValueError(f"a Map2D canvas holds {MAP2D_DTYPE}, not "
                              f"{t.dtype}")

@@ -4,13 +4,14 @@ Port of pislamfusion_tpu/models/fastvo.py:36-313 with one frame per step
 and either detector of the reference. Per frame: rgb->gray, feature
 extraction, a windowed match against the previous frame's plane points,
 an 8-iteration pose-only Huber LM, plane re-unprojection, then the mosaic
-feed (canvas->image homography, K3 shear warp at half resolution,
-Laplacian pyramid and weight pyramid through K8, analytic weights,
-max-weight composite).
+feed (canvas->image homography, by default K3 shear warp at half
+resolution, Laplacian pyramid and weight pyramid through K8, analytic
+weights, max-weight composite).
 
-- detector "orb" (the reference's default here): K1 flat pyramid, FAST +
-  NMS + per-cell selection, K2 patch gather, IC angle, binned BRIEF;
-  Hamming match at 80.
+- detector "orb" (the reference's default here): the K1 flat pyramid
+  (or, with pyramid="packed", the K7 serial packed pyramid), FAST + NMS +
+  per-cell selection (K4 where every level keeps one keypoint a cell),
+  K2 patch gather, IC angle, binned BRIEF; Hamming match at 80.
 - detector "sift" (the reference system's default extractor,
   Default.cfg): K5 octave stacks, DoG extrema, K6 orientation and
   descriptor grids; L2 match at 0.2.
@@ -59,6 +60,13 @@ class FastVO(torch.nn.Module):
         img, covered = vo.blended()
 
     detector: "orb" or "sift" (n_levels applies to ORB only).
+    fast_warp, warp_mode: the feed's warp (the reference's arguments).
+    warp_mode "shear" (K3) or "gather"; "" resolves as Map2D.WarpMode
+    does, to "shear" on a CUDA device and "gather" elsewhere. fast_warp
+    warps at half resolution (band 0's Laplacian zero). The default is
+    the reference's path on its accelerator, half-resolution shear.
+    pyramid: the ORB front end, "flat" (K1) or "packed" (K7)
+    (`orb.orb_detect`).
     device: where everything runs; None means `cuda`, and raises without a
     CUDA device. Pass "cpu" for the plain PyTorch versions of the kernels.
     """
@@ -67,7 +75,9 @@ class FastVO(torch.nn.Module):
                  length_pixel: float, bands: int = 5,
                  n_features: int = 1000, n_levels: int = 8,
                  window_radius: float = 60.0, patch_tiles: int = 0,
-                 detector: str = "orb", device=None):
+                 fast_warp: bool = True, warp_mode: str = "shear",
+                 detector: str = "orb", pyramid: str = "flat",
+                 device=None):
         super().__init__()
         self.device = resolve_device(device)
         self.cam = camera
@@ -76,6 +86,15 @@ class FastVO(torch.nn.Module):
         self.length_pixel = float(length_pixel)
         self.bands = int(bands)
         self.detector = detector
+        self.fast_warp = bool(fast_warp)
+        self.warp_mode = warp_mode or M.default_warp_mode(self.device)
+        if self.warp_mode not in ("shear", "gather"):
+            raise ValueError(f"warp_mode must be 'shear', 'gather' or '', "
+                             f"not {warp_mode!r}")
+        if pyramid not in orb.PYRAMIDS:
+            raise ValueError(f"pyramid must be one of {orb.PYRAMIDS}, not "
+                             f"{pyramid!r}")
+        self.pyramid = pyramid
         if detector == "orb":
             self.params = orb.OrbParams(n_features=n_features,
                                         n_levels=n_levels)
@@ -148,8 +167,8 @@ class FastVO(torch.nn.Module):
         patch_px = self.patch_tiles * ELE
         rgb3 = rgb if rgb.ndim == 3 else rgb[..., None].expand(-1, -1, 3)
         p_lap, p_w = M.patch_pyramids(rgb3, Hc2i, (patch_px, patch_px),
-                                      self.bands, half_res=True,
-                                      warp="shear")
+                                      self.bands, half_res=self.fast_warp,
+                                      warp=self.warp_mode)
         oyx = torch.stack([origin_t[1], origin_t[0]]) * ELE
         M.composite_patch(self.canvas_lap, self.canvas_w, p_lap, p_w, oyx)
 
@@ -205,9 +224,10 @@ class FastVO(torch.nn.Module):
                                   self.params)
             _mark(mark, "orient_desc")
             return feats
-        packed, views, offs = orb.build_pyramid(gray, self.params)
+        packed, views, offs = orb.build_pyramid(gray, self.params,
+                                                self.pyramid)
         _mark(mark, "pyramid")
-        picks = orb.select_levels(views, self.params)
+        picks = orb.select_levels(packed, views, offs, self.params)
         _mark(mark, "fast_nms_select")
         feats = orb.descriptor_tail(picks, packed, offs, self.params)
         _mark(mark, "descriptor_tail")

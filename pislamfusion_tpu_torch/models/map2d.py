@@ -80,12 +80,6 @@ def _se3_inv_mul_np(plane, pose):
     return np.concatenate([t, q])
 
 
-def default_warp_mode(device) -> str:
-    """'shear' (K3) on a CUDA device, 'gather' elsewhere: the reference's
-    rule (shearwarp.py:520-525, the shear kernel on its accelerator)."""
-    return "shear" if torch.device(device).type == "cuda" else "gather"
-
-
 def _np(x):
     return x.detach().cpu().numpy()
 
@@ -361,7 +355,7 @@ class MultiBandMap2D(Map2DBase):
         # Map2D.WarpMode: "" = as the reference resolves it, or explicit
         # "shear"/"gather"
         self.warp_mode = self.cfg.get("Map2D.WarpMode", "") \
-            or default_warp_mode(self.device)
+            or M.default_warp_mode(self.device)
         self.canvas_lap: List[torch.Tensor] = []
         self.canvas_w: List[torch.Tensor] = []
 

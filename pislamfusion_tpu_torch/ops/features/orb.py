@@ -1,21 +1,28 @@
 """ORB extraction on tensors: pyramid, FAST-16, 3x3 NMS, per-cell
 selection, intensity-centroid angle, patch blur, binned steered BRIEF.
 
-Port of the flat-pyramid branch of pislamfusion_tpu/ops/features/orb.py
-`orb_detect` (:719-852) and its helpers, with the resize chain
-(:771-787) for shapes the flat pyramid kernel does not take. The tables
-(`_CIRCLE`, the umax mask, the BRIEF pattern, `_flat_plan`,
-`_flat_matrices`, `_binned_tap_indices`) are the port's own copies.
+Port of pislamfusion_tpu/ops/features/orb.py `orb_detect` (:719-852) and
+its helpers: both pyramid front ends (the flat pyramid K1, :741-752, and
+the serial packed pyramid K7, :753-770), the resize chain (:771-787) for
+shapes neither kernel takes, and the fused FAST+NMS+select kernel K4
+(:790-811) where every level keeps one keypoint a cell. The reference
+picks its front end with process-wide gates (PISLAM_ORB_FLAT,
+PISLAM_PALLAS_EXTRACT); here the pyramid is the `pyramid` argument, and
+K4 takes the selection wherever it applies (`fused_select_ok`). The
+tables (the umax mask, the BRIEF pattern, `_flat_plan`, `_flat_matrices`,
+`_binned_tap_indices`; FAST's `_CIRCLE` in fastselect.py) are the port's
+own copies.
 
 FAST scores and the patch blur run in f32, as the reference computes
 them off the TPU (its bf16 casts at orb.py:182-183 and :548-549 exist
-only for the TPU's vector unit). The fused FAST+select kernel path,
+only for the TPU's vector unit), and as its K4 computes them by default.
 `orb_detect_batch`, `_detect_flat` and `_brief_binned_dot` are off by
 default in the reference and are not ported.
 
 The detector runs in three stages, each a function here, so a caller
-can time them apart: `build_pyramid` (K1), `select_levels` (FAST + NMS +
-selection) and `descriptor_tail` (K2 + angle + BRIEF + truncation).
+can time them apart: `build_pyramid` (K1 or K7), `select_levels` (FAST +
+NMS + selection, K4) and `descriptor_tail` (K2 + angle + BRIEF +
+truncation).
 """
 from __future__ import annotations
 
@@ -29,7 +36,8 @@ import torch
 
 from ...core.device import device_const
 from .. import image as im
-from . import flatpyr
+from . import fastselect, flatpyr, packedpyr
+from .fastselect import fast_score_map
 from .patchgather import gather_patches
 
 PATCH_SIZE = 31        # FeatureDetectorORB.cpp:106
@@ -42,12 +50,6 @@ _GATHER_R = 18 + _BLUR_R
 _GATHER = 2 * _GATHER_R + 1
 
 _PATTERN = np.load(os.path.join(os.path.dirname(__file__), "orb_pattern.npy"))
-
-# FAST-16 circle offsets (dx, dy), OpenCV order
-_CIRCLE = np.array([
-    (0, -3), (1, -3), (2, -2), (3, -1), (3, 0), (3, 1), (2, 2), (1, 3),
-    (0, 3), (-1, 3), (-2, 2), (-3, 1), (-3, 0), (-3, -1), (-2, -2), (-1, -3),
-], np.int32)
 
 
 def _umax_mask() -> np.ndarray:
@@ -106,38 +108,6 @@ class OrbParams:
 # FAST + NMS + selection
 # ---------------------------------------------------------------------------
 
-def fast_score_map(img):
-    """Dense FAST-16 corner score (max t such that 9 contiguous circle
-    pixels are all brighter/darker than the center by t). img: [H, W] f32.
-    The 25 wrapped tap differences are stacked, so each level of the
-    arc-minimum tree is one op (min/max are exact: any order gives the
-    reference's values)."""
-    d = torch.stack([torch.roll(img, (-int(dy), -int(dx)), (0, 1))
-                     for dx, dy in _CIRCLE]) - img
-    d = torch.cat([d, d[:9]])                          # wraparound arcs (25)
-
-    def arc_min(x):
-        m2 = torch.minimum(x[:-1], x[1:])
-        m4 = torch.minimum(m2[:-2], m2[2:])
-        m8 = torch.minimum(m4[:-4], m4[4:])
-        return torch.minimum(m8[:16], x[8:24]).amax(0)
-
-    score = torch.maximum(arc_min(d), arc_min(-d))
-    H, W = img.shape
-    ys = torch.arange(H, device=img.device)[:, None]
-    xs = torch.arange(W, device=img.device)[None, :]
-    edge = (ys >= 3) & (ys < H - 3) & (xs >= 3) & (xs < W - 3)
-    return torch.where(edge, score, torch.zeros_like(score))
-
-
-def _nms3(score):
-    """3x3 non-max suppression as the max of 8 wrapped shifts."""
-    m = torch.stack([torch.roll(score, (dy, dx), (0, 1))
-                     for dy in (-1, 0, 1) for dx in (-1, 0, 1)
-                     if dy or dx]).amax(0)
-    return torch.where(score >= m, score, torch.zeros_like(score))
-
-
 def _per_cell_quota(shape, k: int, cell: int) -> int:
     ncy, ncx = -(-shape[0] // cell), -(-shape[1] // cell)
     return max(1, min(cell * cell, int(np.ceil(2.0 * k / (ncy * ncx)))))
@@ -169,41 +139,26 @@ def select_keypoints(score, k: int, cell: int, min_threshold: float,
     Returns (xy [k, 2] int32, response [k], valid [k])."""
     H, W = score.shape
     dev = score.device
-    ys = torch.arange(H, device=dev)[:, None]
-    xs = torch.arange(W, device=dev)[None, :]
-    ok = ((ys >= border) & (ys < H - border)
-          & (xs >= border) & (xs < W - border))
-    s = torch.where(ok & (score > min_threshold), score,
-                    torch.zeros_like(score))
-    s = _nms3(s)
+    s = fastselect.suppress(score, min_threshold, border)
     ncy, ncx = -(-H // cell), -(-W // cell)
-    sp = torch.nn.functional.pad(s, (0, ncx * cell - W, 0, ncy * cell - H))
     per_cell = _per_cell_quota((H, W), k, cell)
-    Wp = sp.shape[1]
     if per_cell == 1:
-        # cell max, and the winner's first row-major index among ties
-        cells4 = sp.reshape(ncy, cell, ncx, cell)
-        cv2d = cells4.amax((1, 3))
-        up = cv2d[:, None, :, None].expand(ncy, cell, ncx, cell).reshape(
-            sp.shape)
-        lin = torch.arange(sp.numel(), device=dev,
-                           dtype=torch.int64).reshape(sp.shape)
-        idx2d = torch.where(sp == up, lin, torch.full_like(lin, sp.numel()))
-        ci2d = idx2d.reshape(ncy, cell, ncx, cell).amin((1, 3))
-        flat_v = cv2d.reshape(-1)
-        flat_y = (ci2d // Wp).reshape(-1)
-        flat_x = (ci2d % Wp).reshape(-1)
-    else:
-        cells = sp.reshape(ncy, cell, ncx, cell).permute(0, 2, 1, 3)
-        cells = cells.reshape(ncy * ncx, cell * cell)
-        cv, ci = _topk(cells, per_cell, dim=1)         # [ncells, per_cell]
-        cid = torch.arange(ncy * ncx, device=dev)[:, None]
-        gy = (cid // ncx) * cell + ci // cell
-        gx = (cid % ncx) * cell + ci % cell
-        flat_v = cv.reshape(-1)
-        flat_y = gy.reshape(-1)
-        flat_x = gx.reshape(-1)
-    return _topk_flat(flat_v, flat_y, flat_x, k)
+        return _topk_winners(*fastselect.cell_winners(s, cell), cell, k)
+    sp = torch.nn.functional.pad(s, (0, ncx * cell - W, 0, ncy * cell - H))
+    cells = sp.reshape(ncy, cell, ncx, cell).permute(0, 2, 1, 3)
+    cells = cells.reshape(ncy * ncx, cell * cell)
+    cv, ci = _topk(cells, per_cell, dim=1)             # [ncells, per_cell]
+    cid = torch.arange(ncy * ncx, device=dev)[:, None]
+    gy = (cid // ncx) * cell + ci // cell
+    gx = (cid % ncx) * cell + ci % cell
+    return _topk_flat(cv.reshape(-1), gy.reshape(-1), gx.reshape(-1), k)
+
+
+def _topk_winners(cv2d, ci2d, cell: int, k: int):
+    """The global top-k of per-cell winners (orb.py:806-811)."""
+    wp = ci2d.shape[1] * cell
+    return _topk_flat(cv2d.reshape(-1), (ci2d // wp).reshape(-1),
+                      (ci2d % wp).reshape(-1), k)
 
 
 # ---------------------------------------------------------------------------
@@ -365,12 +320,33 @@ def pack_bits(desc_bits):
 # the detector, in three stages
 # ---------------------------------------------------------------------------
 
-def build_pyramid(img, params: OrbParams):
+PYRAMIDS = ("flat", "packed")
+
+
+def fused_select_ok(shapes, params: OrbParams) -> bool:
+    """The reference's `fused_ok` (orb.py:790-793): K4 takes the selection
+    where every level keeps one keypoint a cell."""
+    return params.cell % 8 == 0 and all(
+        _per_cell_quota(shape, max(q, 1), params.cell) == 1
+        for shape, q in zip(shapes, params.features_per_level()))
+
+
+def build_pyramid(img, params: OrbParams, pyramid: str = "flat"):
     """Stage 1. Returns (packed [R, Wp] f32, level views, per-level
-    packed-coordinate offsets (dx, dy) of each level's pixel (0, 0))."""
+    packed-coordinate offsets (dx, dy) of each level's pixel (0, 0)).
+
+    pyramid "flat": K1, every level from level 0 (the reference's default
+    front end); "packed": K7, level l from level l-1 (the reference with
+    PISLAM_ORB_FLAT=0 and the extraction kernels on). Either takes the
+    resize chain for shapes outside its kernel's regime."""
+    if pyramid not in PYRAMIDS:
+        raise ValueError(f"pyramid must be one of {PYRAMIDS}, not "
+                         f"{pyramid!r}")
     H, W = img.shape
     n_levels, sf, cell = params.n_levels, params.scale_factor, params.cell
-    if flatpyr.flat_pyramid_available(H, W, n_levels, sf, cell):
+    r = _GATHER_R
+    if pyramid == "flat" and flatpyr.flat_pyramid_available(
+            H, W, n_levels, sf, cell):
         plan = _flat_plan(H, W, n_levels, sf, cell)
         packed = flatpyr.build_flat_pyramid(img, n_levels, sf, cell)
         pl_ = plan.pad_left
@@ -378,9 +354,17 @@ def build_pyramid(img, params: OrbParams):
                  for b, (lh, lw) in zip(plan.bases, plan.shapes)]
         offs = [(pl_, b + cell) for b in plan.bases]
         return packed, views, offs
-    # resize chain (shapes outside K1's regime): level l from level l-1,
-    # each level edge-padded by the gather radius into one tall buffer
-    r = _GATHER_R
+    if pyramid == "packed" and packedpyr.pyramid_available(
+            H, W, n_levels, sf, r):
+        plan = packedpyr.pyramid_plan(H, W, n_levels, sf, r)
+        packed = packedpyr.build_packed_pyramid(img, n_levels, sf, r)
+        views = [packed[b + r:b + r + lh, r:r + lw]
+                 for b, (lh, lw) in zip(plan.bases, plan.shapes)]
+        offs = [(r, b + r) for b in plan.bases]
+        return packed, views, offs
+    # resize chain (shapes outside the kernels' regimes): level l from
+    # level l-1, each level edge-padded by the gather radius into one tall
+    # buffer
     views = [img]
     for lvl in range(1, n_levels):
         s = sf ** lvl
@@ -397,16 +381,26 @@ def build_pyramid(img, params: OrbParams):
     return torch.cat(blocks, 0), views, offs
 
 
-def select_levels(views, params: OrbParams):
-    """Stage 2: FAST + NMS + per-cell selection on every level. Returns
-    per-level (xy [k, 2] int32 level coords, response, valid)."""
-    quotas = params.features_per_level()
-    out = []
-    for lvl, view in enumerate(views):
-        score = fast_score_map(view)
-        out.append(select_keypoints(score, max(quotas[lvl], 1), params.cell,
-                                    params.min_threshold))
-    return out
+def select_levels(packed, views, offs, params: OrbParams):
+    """Stage 2: FAST + NMS + per-cell selection on every level of
+    `build_pyramid`'s output. Returns per-level (xy [k, 2] int32 level
+    coords, response, valid).
+
+    Where `fused_select_ok`, one K4 launch finds every level's cell
+    winners in place in the packed buffer and the reference's tail takes
+    each level's top k (orb.py:790-811); elsewhere each level goes through
+    fast_score_map and select_keypoints. The two give the same keypoints."""
+    quotas = [max(q, 1) for q in params.features_per_level()]
+    shapes = [tuple(v.shape) for v in views]
+    if fused_select_ok(shapes, params):
+        winners = fastselect.fast_cell_winners(
+            packed, offs, shapes, params.cell, params.min_threshold,
+            EDGE_THRESHOLD)
+        return [_topk_winners(cv2d, ci2d, params.cell, k)
+                for (cv2d, ci2d), k in zip(winners, quotas)]
+    return [select_keypoints(fast_score_map(view), k, params.cell,
+                             params.min_threshold)
+            for view, k in zip(views, quotas)]
 
 
 def descriptor_tail(picks, packed, offs, params: OrbParams):
@@ -441,14 +435,16 @@ def descriptor_tail(picks, packed, offs, params: OrbParams):
     return {kk: v[keep] for kk, v in feats.items()}
 
 
-def orb_detect(img, params: OrbParams = OrbParams()):
+def orb_detect(img, params: OrbParams = OrbParams(), pyramid: str = "flat"):
     """Full extractor. img: [H, W] grayscale float32 (0..255) on the
-    device the caller chose.
+    device the caller chose. pyramid: "flat" (K1) or "packed" (K7), see
+    `build_pyramid`; the selection takes K4 where it applies, see
+    `select_levels`.
 
     Returns a dict with N = params.n_features rows: xy [N, 2] float32
     level-0 pixel coords; response [N]; angle [N] rad; octave [N] int32;
     size [N]; desc [N, 256] uint8 bit-planes; valid [N] bool."""
     img = img.to(torch.float32)
-    packed, views, offs = build_pyramid(img, params)
-    picks = select_levels(views, params)
+    packed, views, offs = build_pyramid(img, params, pyramid)
+    picks = select_levels(packed, views, offs, params)
     return descriptor_tail(picks, packed, offs, params)

@@ -174,6 +174,12 @@ def _mark(mark, stage: str):
         mark(stage)
 
 
+def default_warp_mode(device) -> str:
+    """'shear' (K3) on a CUDA device, 'gather' elsewhere: the reference's
+    rule (shearwarp.py:520-525, the shear kernel on its accelerator)."""
+    return "shear" if torch.device(device).type == "cuda" else "gather"
+
+
 def warp_frame_to_patch(img, h_patch2img, patch_hw, weight_type: int = 0):
     """Gather-warp a frame [H, W, 3] into a canvas patch (reflect border)
     and evaluate its analytic weight. Returns (warped [Ph, Pw, 3], weight

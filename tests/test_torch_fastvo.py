@@ -14,6 +14,18 @@ ones its initial carry is built from), on the same gray image: >= 98 % of
 the valid keypoints with the same (xy, octave), and >= 99.9 % of the
 descriptor bits equal over those (the two pyramids differ by f32
 summation order, which can flip a near-tie FAST rank or BRIEF compare).
+
+The same slice and the same `orb_detect` comparison hold for the other
+ORB front end, `pyramid="packed"` (the serial packed pyramid K7 and the
+fused FAST+NMS+select K4), against one JAX run with the reference's flat
+gate off and its extraction gate on (`forced_tpu_path(flat=False,
+extract=True)`; at 600x640 with 4 levels both kernels apply), and the
+selection through K4 equals select_keypoints' exactly.
+
+`fast_warp=False` (the reference's callers' setting) is held on one feed
+against the JAX feed, both with warp_mode "" (the gather warp on the
+CPU, at full resolution): canvas weights within 1e-5, Laplacian bands
+within 1e-3 gray.
 """
 import os
 import subprocess
@@ -26,8 +38,10 @@ import torch
 import chip_smoke
 from pislamfusion_tpu_torch import convert
 from pislamfusion_tpu_torch.ops import shearwarp as tsw
+from pislamfusion_tpu_torch.ops.features import fastselect as tfs
 from pislamfusion_tpu_torch.ops.features import flatpyr as tfp
 from pislamfusion_tpu_torch.ops.features import orb as torb
+from pislamfusion_tpu_torch.ops.features import packedpyr as tpp
 from pislamfusion_tpu_torch.ops.features import patchgather as tpg
 from torch_port_reference import (jax_fastvo_run,  # noqa: F401
                                   once_per_session, seed_canvas,
@@ -57,11 +71,47 @@ def jax_run(strip, tmp_path_factory, worker_id):
         tmp_path_factory, worker_id)
 
 
+@pytest.fixture(scope="module")
+def jax_run_packed(strip, tmp_path_factory, worker_id):
+    """The one JAX reference run of the packed front end (K7 + K4)."""
+    frames, poses, canvas = strip
+    return once_per_session(
+        "jax_orb_fastvo_packed",
+        lambda: jax_fastvo_run(frames, poses, FX, canvas, "orb", N, LEVELS,
+                               BANDS, flat=False, extract=True),
+        tmp_path_factory, worker_id)
+
+
 def test_orb_detect_matches_reference_tpu_path(jax_run):
-    ref = jax_run["feats0"]
-    got = {k: v.numpy() for k, v in torb.orb_detect(
-        torch.from_numpy(jax_run["gray0"].copy()),
-        torb.OrbParams(n_features=N, n_levels=LEVELS)).items()}
+    _assert_features_match(jax_run["feats0"], {
+        k: v.numpy() for k, v in torb.orb_detect(
+            torch.from_numpy(jax_run["gray0"].copy()),
+            torb.OrbParams(n_features=N, n_levels=LEVELS)).items()})
+
+
+def test_orb_detect_packed_matches_reference_extract_path(jax_run_packed):
+    """pyramid="packed" against the reference with K7 and K4 on; the
+    selection through K4 and the reference's tail equals select_keypoints'
+    on every level."""
+    gray = torch.from_numpy(jax_run_packed["gray0"].copy())
+    params = torb.OrbParams(n_features=N, n_levels=LEVELS)
+    assert tpp.pyramid_available(H, W, LEVELS, params.scale_factor,
+                                 torb._GATHER_R)
+    packed, views, offs = torb.build_pyramid(gray, params, "packed")
+    assert torb.fused_select_ok([v.shape for v in views], params)
+    fused = torb.select_levels(packed, views, offs, params)
+    unfused = [torb.select_keypoints(tfs.fast_score_map(v), max(k, 1),
+                                     params.cell, params.min_threshold)
+               for v, k in zip(views, params.features_per_level())]
+    for a, b in zip(fused, unfused):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    _assert_features_match(jax_run_packed["feats0"], {
+        k: v.numpy() for k, v in torb.orb_detect(
+            gray, params, pyramid="packed").items()})
+
+
+def _assert_features_match(ref, got):
     assert set(got) == set(ref)
     for k in ref:
         assert got[k].shape == ref[k].shape and got[k].dtype == ref[k].dtype
@@ -82,17 +132,30 @@ def test_orb_detect_matches_reference_tpu_path(jax_run):
 
 
 def test_fastvo_slice_matches_reference_tpu_path(strip, jax_run):
+    _assert_slice_matches(strip, jax_run, {})
+
+
+def test_fastvo_packed_slice_matches_reference_extract_path(strip,
+                                                            jax_run_packed):
+    _assert_slice_matches(strip, jax_run_packed, {"pyramid": "packed"})
+
+
+def _assert_slice_matches(strip, jax_run, kw):
+    """The port's FastVO (constructor arguments `kw`) on the CPU from the
+    seeded canvas against the JAX run."""
     frames, poses, (lap0, w0) = strip
-    for fn in (tfp.build_flat_pyramid, tpg.gather_patches, tsw.warp_patch):
+    wrappers = (tfp.build_flat_pyramid, tpp.build_packed_pyramid,
+                tfs.fast_cell_winners, tpg.gather_patches, tsw.warp_patch)
+    for fn in wrappers:
         fn.launches = 0
-    tvo = chip_smoke.make_fastvo(H, W, FX, poses, N, LEVELS, BANDS, "cpu")
+    tvo = chip_smoke.make_fastvo(H, W, FX, poses, N, LEVELS, BANDS, "cpu",
+                                 **kw)
     assert convert.load_fastvo_state(
         tvo, convert.fastvo_state_from_numpy(lap0, w0, device="cpu")) is None
     p_t, n_t = tvo.process(frames, poses[0])
     img_t, cov_t = tvo.blended()
     # on the CPU every wrapper took its plain version
-    assert (tfp.build_flat_pyramid.launches, tpg.gather_patches.launches,
-            tsw.warp_patch.launches) == (0, 0, 0)
+    assert [fn.launches for fn in wrappers] == [0] * len(wrappers)
 
     p_j, n_j = jax_run["poses"], jax_run["n_match"]
     img_j, cov_j = jax_run["img"], jax_run["cov"]
@@ -110,6 +173,45 @@ def test_fastvo_slice_matches_reference_tpu_path(strip, jax_run):
         {"canvas_lap": tvo.canvas_lap, "canvas_w": tvo.canvas_w})
     for a, b in zip(state["canvas_w"], jax_run["canvas_w"]):
         assert np.mean(np.abs(a - b) <= 1e-2) >= 0.999
+
+
+def test_fast_warp_off_feed_matches_reference():
+    """FastVO(fast_warp=False, warp_mode=""), as the reference's callers
+    make it: on the CPU both packages resolve "" to the gather warp, at
+    full resolution. One feed into a seeded canvas, held to the JAX
+    feed."""
+    import jax
+    import jax.numpy as jnp
+    from pislamfusion_tpu.core.camera import Camera as JCamera
+    from pislamfusion_tpu.models.fastvo import FastVO as JFastVO
+    h, w, fx, bands = 256, 320, 320.0, 2
+    frames, poses = chip_smoke.render_strip(2, h, w, fx, 0.24, 1024, "cpu")
+    lp, patch_tiles, canvas_tiles, min_xy = chip_smoke.strip_geometry(
+        h, w, fx, poses)
+    lap0, w0 = seed_canvas(canvas_tiles, bands, np.random.default_rng(53))
+    tvo = chip_smoke.make_fastvo(h, w, fx, poses, 128, LEVELS, bands, "cpu",
+                                 fast_warp=False, warp_mode="")
+    assert (tvo.fast_warp, tvo.warp_mode) == (False, "gather")
+    convert.load_fastvo_state(
+        tvo, convert.fastvo_state_from_numpy(lap0, w0, device="cpu"))
+    rgb = frames[1].to(torch.float32)
+    tvo._feed(torch.from_numpy(poses[1]), rgb)
+    jvo = JFastVO(JCamera(w, h, fx, fx, w / 2.0, h / 2.0), min_xy,
+                  canvas_tiles, lp, bands=bands, n_features=128,
+                  n_levels=LEVELS, patch_tiles=patch_tiles,
+                  fast_warp=False)
+    assert (jvo.fast_warp, jvo.warp_mode) == (False, "gather")
+    j_lap, j_w = jax.jit(jvo._feed)(
+        jnp.asarray(poses[1]), jnp.asarray(rgb.numpy()),
+        [jnp.asarray(a) for a in lap0], [jnp.asarray(a) for a in w0])
+    for t, j in zip(tvo.canvas_w, j_w):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0,
+                                   atol=1e-5)
+    for t, j in zip(tvo.canvas_lap, j_lap):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0,
+                                   atol=1e-3)
+    # the frame went in: it took pixels of the canvas
+    assert (tvo.canvas_w[0].numpy() != w0[0]).sum() > 1000
 
 
 def test_convert_round_trip():

@@ -22,6 +22,13 @@ K8 banded sandwich: within 2e-5 of the output's largest magnitude (about
 blur and resize matrices (the interpreter's dense 128-blocks and the
 port's spans sum in other orders: 2 f32 ulps, ~3e-5 gray, measured); its
 spans rebuild each matrix exactly.
+K4 fused FAST+NMS+select: equal (0 differing cells in cv2d and ci2d) to
+the interpreted kernel on tests/test_fastselect.py's cases (two levels,
+integer ties, no corners, cell 16); through a packed buffer and level
+offsets, equal to the per-level plain version.
+K7 packed pyramid: the reference's plan, regime and every level's (lh +
+2r, lw + 2r) block equal to the interpreted kernel (both sum the taps as
+one fused multiply-add chain), zeros elsewhere.
 """
 import numpy as np
 import pytest
@@ -32,6 +39,8 @@ import jax.numpy as jnp
 from pislamfusion_tpu.ops import image as jim
 from pislamfusion_tpu.ops import shearwarp as jsw
 from pislamfusion_tpu.ops.features import flatpyr_pallas as jfpp
+from pislamfusion_tpu.ops.features import pyramid_pallas as jpp
+from pislamfusion_tpu.ops.features.fastselect import fast_cell_winners
 from pislamfusion_tpu.ops.features import orb as jorb
 from pislamfusion_tpu.ops.features import sift as jsift
 from pislamfusion_tpu.ops.features.patchgather import (bilinear_grid_pallas,
@@ -42,8 +51,10 @@ from pislamfusion_tpu.ops.stencil_pallas import (banded_sandwich_pallas,
 from pislamfusion_tpu_torch.ops import image as tim
 from pislamfusion_tpu_torch.ops import shearwarp as tsw
 from pislamfusion_tpu_torch.ops import stencil as tst
+from pislamfusion_tpu_torch.ops.features import fastselect as tfs
 from pislamfusion_tpu_torch.ops.features import flatpyr as tfp
 from pislamfusion_tpu_torch.ops.features import orb as torb
+from pislamfusion_tpu_torch.ops.features import packedpyr as tpp
 from pislamfusion_tpu_torch.ops.features import patchgather as tpg
 from pislamfusion_tpu_torch.ops.features import sift as tsift
 from torch_port_reference import torch_one_thread  # noqa: F401
@@ -333,3 +344,88 @@ def test_bandedsandwich_wrapper_refuses_other_devices():
     tabs = tim.pyr_tables("down", 64, 64, 32, 32)
     with pytest.raises(ValueError):
         tst.banded_sandwich(torch.empty((64, 64, 3), device="meta"), tabs)
+
+
+# K4 cases of tests/test_fastselect.py: (levels, cell)
+_WINNERS = {
+    "two_levels": (lambda rng: [rng.uniform(0, 255, (240, 320)),
+                                rng.uniform(0, 255, (200, 267))], 32),
+    "integer_ties": (lambda rng: [rng.integers(0, 24, (160, 224))], 32),
+    "no_corners": (lambda rng: [np.full((96, 128), 77.0)], 32),
+    "cell16": (lambda rng: [rng.uniform(0, 255, (128, 160))], 16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_WINNERS))
+def test_fastselect_plain_matches_interpreted_kernel(case):
+    make, cell = _WINNERS[case]
+    levels = [x.astype(np.float32) for x in make(np.random.default_rng(0))]
+    ref = fast_cell_winners([jnp.asarray(x) for x in levels], cell, 7.0,
+                            jorb.EDGE_THRESHOLD, use_bf16=False,
+                            interpret=True)
+    got = tfs.fast_cell_winners_plain([torch.from_numpy(x) for x in levels],
+                                      cell, 7.0, torb.EDGE_THRESHOLD)
+    for (cv, ci), (jcv, jci) in zip(got, ref):
+        assert cv.dtype == torch.float32 and ci.dtype == torch.int32
+        np.testing.assert_array_equal(cv.numpy(), np.asarray(jcv))
+        np.testing.assert_array_equal(ci.numpy(), np.asarray(jci))
+    if case == "no_corners":
+        assert not (got[0][0] > 0).any()
+    # the wrapper reads the levels in place from a packed buffer
+    rows = sum(x.shape[0] + 8 for x in levels)
+    packed = torch.zeros((rows, max(x.shape[1] for x in levels) + 9))
+    offs, y = [], 3
+    for x in levels:
+        packed[y:y + x.shape[0], 5:5 + x.shape[1]] = torch.from_numpy(x)
+        offs.append((5, y))
+        y += x.shape[0] + 5
+    wrapped = tfs.fast_cell_winners(packed, offs, [x.shape for x in levels],
+                                    cell, 7.0, torb.EDGE_THRESHOLD)
+    for (cv, ci), (wcv, wci) in zip(got, wrapped):
+        assert torch.equal(cv, wcv) and torch.equal(ci, wci)
+
+
+def test_fastselect_wrapper_refuses_other_devices():
+    with pytest.raises(ValueError):
+        tfs.fast_cell_winners(torch.empty((64, 64), device="meta"),
+                              [(0, 0)], [(64, 64)], 32, 7.0, 16)
+
+
+@pytest.mark.parametrize("h, w, levels", [
+    (240, 320, 4), (100, 120, 4), (600, 640, 4), (1080, 1920, 8),
+    (480, 640, 8), (600, 640, 1),
+])
+def test_packedpyr_regime_and_plan_match_reference(h, w, levels):
+    avail = jpp.pyramid_available(h, w, levels, 1.2, 21)
+    assert tpp.pyramid_available(h, w, levels, 1.2, 21) == avail
+    assert avail == ((h, w) not in ((100, 120),) and levels > 1)
+    if avail:
+        assert tpp.pyramid_plan(h, w, levels, 1.2, 21).__dict__ \
+            == jpp.pyramid_plan(h, w, levels, 1.2, 21).__dict__
+
+
+def test_packedpyr_plain_matches_interpreted_kernel():
+    H, W, L, S, r = 240, 320, 4, 1.2, 21
+    img = np.random.default_rng(15).uniform(0, 255, (H, W)).astype(
+        np.float32)
+    ref = np.asarray(jpp.build_packed_pyramid(jnp.asarray(img), L, S, r,
+                                              interpret=True))
+    got = tpp.build_packed_pyramid(torch.from_numpy(img), L, S, r).numpy()
+    plan = tpp.pyramid_plan(H, W, L, S, r)
+    assert got.shape == ref.shape == (plan.total_rows, plan.wpl)
+    live = np.zeros(got.shape, bool)
+    for lvl, (lh, lw) in enumerate(plan.shapes):
+        b = plan.bases[lvl]
+        live[b:b + lh + 2 * r, :lw + 2 * r] = True
+        np.testing.assert_array_equal(got[b:b + lh + 2 * r, :lw + 2 * r],
+                                      ref[b:b + lh + 2 * r, :lw + 2 * r])
+    assert not got[~live].any()
+    # level 0's block is the exact edge pad
+    np.testing.assert_array_equal(got[:H + 2 * r, :W + 2 * r],
+                                  np.pad(img, r, mode="edge"))
+
+
+def test_packedpyr_wrapper_refuses_other_devices():
+    with pytest.raises(ValueError):
+        tpp.build_packed_pyramid(torch.empty((240, 320), device="meta"), 4,
+                                 1.2, 21)

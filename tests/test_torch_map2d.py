@@ -26,8 +26,10 @@ the pixels may differ by more (measured: 0.04, 0.2 and 0.6 % in bands
 The same bounds hold after `refresh` on a drifted pose set, after canvas
 growth, and for a port engine that takes over a JAX engine's state after
 four frames (`convert.py`; a RenderMap2D's with one frame pending) and
-is fed the fifth, which is also held to a port engine fed all five. `grow_canvas` is exact, and so are the PNG round
-trip and the copies of the host-only modules.
+is fed the fifth, which is also held to a port engine fed all five; a
+state loads only into an engine of its own Map2D.Type, bands and
+weight_type, with a canvas that fits its tiles. `grow_canvas` is exact,
+and so are the PNG round trip and the copies of the host-only modules.
 """
 import os
 
@@ -248,7 +250,7 @@ def test_refresh_matches_reference(case, world, jax_runs):
     assert m.refresh([(f, p, p) for f, p in zip(frames, POSES)]) == 0
 
 
-@pytest.mark.parametrize("case", ["multiband", "render", "weighted"])
+@pytest.mark.parametrize("case", ["multiband", "render", "weighted", "gpu"])
 def test_convert_carries_a_reference_engine(case, world, jax_runs):
     """A JAX engine's state after K_CARRY frames (a RenderMap2D's with one
     frame pending), carried into a port engine that is fed the rest,
@@ -279,6 +281,29 @@ def test_convert_checks_dtypes(world, jax_runs):
                                            "cpu")
     with pytest.raises(ValueError, match="canvas_lap"):
         convert.load_map2d_state(_port("multiband"), state)
+
+
+@pytest.mark.parametrize("state_case, engine_case", [
+    ("gpu", "weighted"), ("weighted", "gpu"), ("render", "multiband")])
+def test_convert_refuses_another_engine_kind(state_case, engine_case, world,
+                                            jax_runs):
+    """Types 1 and 2 share the names acc/wsum but not their meaning (Type
+    1's acc is the sum of weight times colour, Type 2's the blended
+    colour), so a state loads only into an engine of its own Map2D.Type,
+    bands and weight_type."""
+    state = convert.map2d_state_from_numpy(jax_runs[state_case]["state"],
+                                           "cpu")
+    assert state["map2d_type"] == CASES[state_case][0]
+    with pytest.raises(ValueError, match="does not take"):
+        convert.load_map2d_state(_port(engine_case), state)
+
+
+@pytest.mark.parametrize("case", ["weighted", "multiband"])
+def test_convert_checks_the_canvas_against_the_tiles(case, world, jax_runs):
+    state = convert.map2d_state_from_numpy(jax_runs[case]["state"], "cpu")
+    state["w_tiles"] += 1
+    with pytest.raises(ValueError, match="tiles"):
+        convert.load_map2d_state(_port(case), state)
 
 
 def test_canvas_growth_matches_reference(world):
@@ -351,7 +376,7 @@ def test_factory_and_defaults():
         m = tmap.create_map2d(name, _cfg(Svar, {}), device="cpu")
         assert type(m) is cls
     assert tmap.create_map2d(3, Svar(), device="cpu").warp_mode == "gather"
-    assert tmap.default_warp_mode("cuda") == "shear"
+    assert tm.default_warp_mode("cuda") == "shear"
 
 
 def test_create_map2d_defaults_to_cuda_and_raises_without_it():

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 import chip_smoke
 from pislamfusion_tpu.ops.features import orb as jorb
+from pislamfusion_tpu_torch.ops.features import fastselect as tfs
 from pislamfusion_tpu_torch.ops.features import orb as torb
 from torch_port_reference import torch_one_thread  # noqa: F401
 
@@ -31,7 +32,7 @@ def gray():
 
 
 def test_orb_tables_match_reference():
-    np.testing.assert_array_equal(torb._CIRCLE, jorb._CIRCLE)
+    np.testing.assert_array_equal(tfs._CIRCLE, jorb._CIRCLE)
     np.testing.assert_array_equal(torb._umax_mask(), jorb._umax_mask())
     np.testing.assert_array_equal(torb._IC_U, jorb._IC_U)
     np.testing.assert_array_equal(torb._IC_V, jorb._IC_V)
@@ -49,11 +50,11 @@ def test_orb_tables_match_reference():
 
 
 def test_fast_score_and_nms_exact(gray):
-    t = torb.fast_score_map(torch.from_numpy(gray))
+    t = tfs.fast_score_map(torch.from_numpy(gray))
     # the references jitted: one compile, not an eager one per operation
     j = jax.jit(jorb.fast_score_map)(jnp.asarray(gray))
     np.testing.assert_array_equal(t.numpy(), np.asarray(j))
-    np.testing.assert_array_equal(torb._nms3(t).numpy(),
+    np.testing.assert_array_equal(tfs._nms3(t).numpy(),
                                   np.asarray(jax.jit(jorb._nms3)(j)))
 
 

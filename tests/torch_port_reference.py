@@ -4,14 +4,17 @@ PyTorch port's tests (`test_torch_*.py`).
 `forced_tpu_path` does what tests/test_orb_fused_path.py does: it turns
 on the Pallas gates (the flat ORB pyramid K1, the patch gather K2, the
 shear warp K3, SIFT's stack kernel K5 and grid sampler K6; the round-2
-extraction kernels and the banded sandwich stay off, as they ship), runs
+extraction kernels and the banded sandwich stay off, as they ship, unless
+the caller sets the two ORB front-end gates otherwise: `flat=False,
+extract=True` is the packed pyramid K7 with the fused FAST+select K4), runs
 every Pallas kernel in interpret mode (`interpret=True`, as the package's
 own kernel tests run them: the kernel is discharged into XLA operations
 and compiled, which runs the kernels many times faster than the TPU
 interpreter of `pltpu.force_tpu_interpret_mode`), and clears the jit
-caches of `orb_detect`, `sift_detect` and the mosaic composites (which
-reach the shear-warp kernel) on the way in and out so that no trace made
-under the forced gates reaches another test of the same worker.
+caches of `orb_detect`, `sift_detect`, the mosaic composites (which
+reach the shear-warp kernel) and the two extraction kernels on the way in
+and out so that no trace made under the forced gates reaches another test
+of the same worker.
 """
 import contextlib
 import pickle
@@ -22,11 +25,13 @@ import torch
 
 from pislamfusion_tpu.ops import image as im
 from pislamfusion_tpu.ops import mosaic
-from pislamfusion_tpu.ops.features import orb, sift
+from pislamfusion_tpu.ops.features import fastselect, orb, pyramid_pallas, sift
 
 
 @contextlib.contextmanager
-def forced_tpu_path(monkeypatch):
+def forced_tpu_path(monkeypatch, flat=True, extract=False):
+    """flat: orb._flat_gate (K1); extract: orb._extract_kernels_on (K7
+    where K1 is off, and K4)."""
     from jax.experimental import pallas as pl
 
     pallas_call = pl.pallas_call
@@ -37,8 +42,8 @@ def forced_tpu_path(monkeypatch):
 
     monkeypatch.setattr(pl, "pallas_call", interpreted)
     monkeypatch.setattr(im, "use_tpu_pallas", lambda: True)
-    monkeypatch.setattr(orb, "_flat_gate", lambda: True)
-    monkeypatch.setattr(orb, "_extract_kernels_on", lambda: False)
+    monkeypatch.setattr(orb, "_flat_gate", lambda: flat)
+    monkeypatch.setattr(orb, "_extract_kernels_on", lambda: extract)
     # the stencil gates as they ship on a TPU (image.py:245), restored
     # afterwards whatever a gate cached meanwhile
     monkeypatch.setattr(im, "_PALLAS_STENCIL",
@@ -46,7 +51,9 @@ def forced_tpu_path(monkeypatch):
     monkeypatch.setenv("PISLAM_PAIR_STEP", "0")
     jitted = (orb.orb_detect, sift.sift_detect, mosaic.composite_frame,
               mosaic.composite_frames_batch,
-              mosaic.composite_frames_batch_seamed)
+              mosaic.composite_frames_batch_seamed,
+              fastselect._winners_kernel_call,
+              pyramid_pallas.build_packed_pyramid)
     for fn in jitted:
         fn.clear_cache()
     try:
@@ -95,9 +102,10 @@ def once_per_session(name, make, tmp_path_factory, worker_id):
 
 
 def jax_fastvo_run(frames, poses, fx, canvas, detector, n_features,
-                   n_levels, bands):
-    """The JAX FastVO on its TPU path over frames [K, H, W, 3] (numpy)
-    from the canvas (lap, w), with bench.py's geometry. Returns numpy:
+                   n_levels, bands, flat=True, extract=False):
+    """The JAX FastVO on its TPU path (`forced_tpu_path` with the ORB gates
+    `flat` and `extract`) over frames [K, H, W, 3] (numpy) from the canvas
+    (lap, w), with bench.py's geometry. Returns numpy:
     poses, n_match, the blended mosaic and its coverage, the canvas
     weights, and frame 0's gray image and features (the ones its initial
     carry is built from), read out of the compiled program by a debug
@@ -132,7 +140,8 @@ def jax_fastvo_run(frames, poses, fx, canvas, detector, n_features,
         return feats
 
     vo._detect = spy
-    with pytest.MonkeyPatch.context() as mp, forced_tpu_path(mp):
+    with pytest.MonkeyPatch.context() as mp, \
+            forced_tpu_path(mp, flat, extract):
         p, n = vo.process(jnp.asarray(frames), poses[0])
         jax.effects_barrier()
         img, cov = vo.blended()
