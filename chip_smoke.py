@@ -14,11 +14,16 @@ It builds the port's CUDA kernels from `pislamfusion_tpu_torch/csrc/`
    card at the shapes of the main paths (K4 on K1's 8-level 1080p
    pyramid and on K7's 4-level pyramid of the small strip; K3 at
    FastVO's half resolution and at the Map2D engine's full resolution;
-   K8 at the Map2D patch's pyrDown and pyrUp, its weight chain, the
-   canvas pyrUp of `blended()` and FastVO's half-res pyramid), and times
-   the kernel, its plain version and one library call that computes the
-   same function where there is one (each the device time of a call,
-   from 20 calls captured in one CUDA graph), beside its bound;
+   K6 on SIFT's orientation and descriptor grids; K8 at the Map2D
+   patch's pyrDown and pyrUp, its weight chain, the canvas pyrUp of
+   `blended()`, FastVO's half-res pyramid, its 1080p source pyrDown and
+   its band-0 weight pyrUp, each with its launch plan and resident blocks
+   an SM), and times the kernel, its plain version and one library call
+   that computes the same function where there is one (each the device
+   time of a call, from 20 calls captured in one CUDA graph), beside its
+   bound; K8's 1536^2x3 pyrDown and 1080p source pyrDown and K6's
+   orientation grid also with a cold L2 (a 128 MB write before each call,
+   its own time subtracted);
 2. drives the FastVO paths through `FastVO.process` at 1920x1080 over 24
    frames of bench.py's synthetic survey strip (window radius 60, 5
    bands): ORB-1000 with 8 levels (the flat pyramid K1 and K4), the same
@@ -176,6 +181,17 @@ def graph_ms(fn, reps: int = 20) -> float:
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+FLUSH_BYTES = 128 << 20     # more than the H100's 50 MB L2
+
+
+def graph_ms_cold(fn, flush, reps: int = 20) -> float:
+    """graph_ms of fn() with a write of `flush` (FLUSH_BYTES) before each
+    call, less graph_ms of the write alone: fn's device time with its
+    inputs out of L2 (and L2 full of the write's dirty lines)."""
+    both = graph_ms(lambda: (flush.fill_(1.0), fn()), reps)
+    return both - graph_ms(lambda: flush.fill_(1.0), reps)
 
 
 def timed(label: str, kernel, plain, library=None, reps: int = 20):
@@ -448,7 +464,8 @@ def check_shearwarp(src, homs, patch_hw):
 
 def check_bandedstack(xs, params):
     """K5 on each octave input x [h, w] (0..1) of `xs`: kernel vs plain;
-    timed on the first."""
+    timed on the first with its plain version and library yardstick, the
+    others alone."""
     import torch
     from pislamfusion_tpu_torch.ops import stencil
     from pislamfusion_tpu_torch.ops.features import sift
@@ -487,21 +504,33 @@ def check_bandedstack(xs, params):
     ops = 2.0 * (float(tabs.row_len.sum()) * w + float(tabs.col_len.sum())
                  * h)
     print(f"  K5 work: {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB")
+    for xo in xs[1:]:       # the other octaves: the kernel beside its bound
+        to = sift._stack_tables(*xo.shape, params)
+        ho, wo = xo.shape
+        bo = bound_ms((1 + to.scales) * ho * wo * 4, 2.0 * (
+            float(to.row_len.sum()) * wo + float(to.col_len.sum()) * ho),
+            FP32_OPS_PER_S)
+        print(f"  K5 {ho}x{wo}: kernel "
+              f"{graph_ms(lambda: stencil.banded_stack(xo, to)):.4f} ms, "
+              f"bound {bo[0]:.5f} ms ({bo[1]})")
     return _row("bandedstack", "pislamfusion_tpu_torch/csrc/bandedstack.cu",
                 "pislamfusion_tpu/ops/stencil_pallas.py:338", max(errs), ms,
                 plain,
                 bound_ms(nbytes, ops, FP32_OPS_PER_S), library)
 
 
-def check_bilineargrid(grad, grids):
+def check_bilineargrid(grad, grids, flush):
     """K6 on the packed gradient image grad [Hp, W, 2] at each (label,
-    centers, rel) of `grids`: kernel vs plain; timed on the first."""
+    centers, rel) of `grids`: kernel vs plain, each grid timed beside
+    grid_sample (the library yardstick), the first also with a cold L2.
+    Returns the row of the first grid."""
     import torch
     import torch.nn.functional as F
     from pislamfusion_tpu_torch.ops.features import patchgather as pg
     from pislamfusion_tpu_torch.ops.features import sift
     R = sift.GRID_RADIUS
-    errs = []
+    Hp, W, C = grad.shape
+    errs, figs = [], []
     for label, centers, rel in grids:
         if not float(rel.abs().max()) < R:
             raise AssertionError(f"K6 {label}: an offset reaches the radius")
@@ -511,24 +540,31 @@ def check_bilineargrid(grad, grids):
         errs.append(float((ker - pln).abs().max()))
         print(f"K6 bilineargrid {label}: {tuple(grad.shape)}, "
               f"{centers.shape[0]} keypoints x {rel.shape[2]} samples: max "
-              f"|kernel - plain| {errs[-1]:.3e} (bound 1e-4)")
+              f"|kernel - plain| {errs[-1]:.3e}, bit-equal "
+              f"{bool(torch.equal(ker, pln))} (bound 1e-4)")
         if not errs[-1] <= 1e-4:
             raise AssertionError(f"K6 {label} disagrees with its plain "
                                  "version")
-    _, centers, rel = grids[0]
-    # library yardstick: grid_sample's zero-padded bilinear at the same
-    # points (align_corners: pixel centres at -1 and 1)
-    Hp, W, C = grad.shape
-    px = centers[:, 0:1].to(torch.float32) + rel[:, 0]
-    py = centers[:, 1:2].to(torch.float32) + rel[:, 1]
-    gn = torch.stack([px * (2.0 / (W - 1)) - 1.0,
-                      py * (2.0 / (Hp - 1)) - 1.0], -1)[None]
-    src = grad.permute(2, 0, 1)[None].contiguous()
-    ms, plain, library = timed(
-        "K6", lambda: pg.bilinear_grid(grad, centers, rel, R),
-        lambda: pg.bilinear_grid_plain(grad, centers, rel, R),
-        lambda: F.grid_sample(src, gn, mode="bilinear", padding_mode="zeros",
-                              align_corners=True))
+        # library yardstick: grid_sample's zero-padded bilinear at the same
+        # points (align_corners: pixel centres at -1 and 1)
+        px = centers[:, 0:1].to(torch.float32) + rel[:, 0]
+        py = centers[:, 1:2].to(torch.float32) + rel[:, 1]
+        gn = torch.stack([px * (2.0 / (W - 1)) - 1.0,
+                          py * (2.0 / (Hp - 1)) - 1.0], -1)[None]
+        src = grad.permute(2, 0, 1)[None].contiguous()
+        kernel = lambda: pg.bilinear_grid(grad, centers, rel, R)  # noqa
+        ms, plain, library = timed(
+            f"K6 {label}", kernel,
+            lambda: pg.bilinear_grid_plain(grad, centers, rel, R),
+            lambda: F.grid_sample(src, gn, mode="bilinear",
+                                  padding_mode="zeros", align_corners=True))
+        if not figs:
+            print(f"  K6 {label} cold L2: kernel "
+                  f"{graph_ms_cold(kernel, flush):.4f} ms (a "
+                  f"{FLUSH_BYTES >> 20} MB write before each call, its own "
+                  "time subtracted)")
+        figs.append((label, centers, rel, ms, plain, library))
+    _, centers, rel, ms, plain, library = figs[0]
     # bytes: the in-image pixels the taps cover, the offsets, the centres
     # and the samples
     WH, _, WWpx, ya, xa, dy0, dx0 = pg._grid_geometry(centers, C, R)
@@ -552,16 +588,18 @@ def check_bilineargrid(grad, grids):
                 library)
 
 
-def check_bandedsandwich(cases):
-    """K8 on each (label, x, tables) of `cases`: kernel vs plain (equal:
-    the same f32 products and sums in the same order), each timed with
-    its plain version and the library yardstick (two dense f32
-    torch.matmul, TF32 off) beside its bound. Returns the row of the
-    first case and the per-case figures."""
+def check_bandedsandwich(cases, flush):
+    """K8 on each (label, x, tables, cold) of `cases`: kernel vs plain
+    (torch.equal: the same f32 products and sums in the same order), each
+    timed with its plain version and the library yardstick (two dense f32
+    torch.matmul, TF32 off) beside its bound, and with a cold L2 where
+    `cold`. Prints each case's launch plan and the kernel's resident
+    blocks an SM. Returns the row of the first case and the per-case
+    figures."""
     import torch
     from pislamfusion_tpu_torch.ops import stencil
     errs, figs = [], []
-    for label, x, tabs in cases:
+    for label, x, tabs, cold in cases:
         ker = stencil.banded_sandwich(x, tabs)
         pln = stencil.banded_sandwich_plain(x, tabs)
         torch.cuda.synchronize()
@@ -570,10 +608,17 @@ def check_bandedsandwich(cases):
         errs.append(err)
         H, W, C = x.shape
         Ho, Wo = tabs.out_shape
+        plan, _, occ, sms = stencil._plan_on(tabs, C, x.device)
+        ntr, ntc = plan.tiles
         print(f"K8 bandedsandwich {label}: {H}x{W}x{C} -> {Ho}x{Wo}x{C}, "
-              f"max |kernel - plain| {err:.3e}, bit-equal {exact} (bound "
-              "1e-4; equal when the order of operations is kept)")
-        if not err <= 1e-4:
+              f"max |kernel - plain| {err:.3e}, bit-equal {exact} (the gate: "
+              "equal)")
+        print(f"  K8 {label} plan: {plan.tr}x{plan.tc} output tiles "
+              f"({ntr}x{ntc}), tap bound {plan.K}, {plan.smem} bytes of "
+              f"shared memory a block, {occ} resident blocks an SM "
+              f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor), grid "
+              f"{min(ntr * ntc, occ * sms)}")
+        if not exact:
             raise AssertionError(f"K8 {label} disagrees with its plain "
                                  "version")
         mh = _dense_rows(tabs.row_start, tabs.row_len, tabs.row_w, H,
@@ -581,20 +626,26 @@ def check_bandedsandwich(cases):
         mw = _dense_rows(tabs.col_start, tabs.col_len, tabs.col_w, W,
                          x.device)
         x2 = x.reshape(H, W * C)
+        kernel = lambda: stencil.banded_sandwich(x, tabs)  # noqa: E731
         ms, plain, library = timed(
-            f"K8 {label}", lambda: stencil.banded_sandwich(x, tabs),
+            f"K8 {label}", kernel,
             lambda: stencil.banded_sandwich_plain(x, tabs),
             lambda: torch.matmul(mw, torch.matmul(mh, x2).view(Ho, W, C)))
+        del mh, mw
         nbytes = (x.numel() + Ho * Wo * C) * 4 + sum(
             a.nbytes for a in (tabs.row_start, tabs.row_len, tabs.row_w,
                                tabs.col_start, tabs.col_len, tabs.col_w))
         ops = 2.0 * C * (float(tabs.row_len.sum()) * W
                          + float(tabs.col_len.sum()) * Ho)
         bound = bound_ms(nbytes, ops, FP32_OPS_PER_S)
+        ms_cold = graph_ms_cold(kernel, flush) if cold else None
         print(f"  K8 {label} work: {nbytes / 1e6:.2f} MB, {ops / 1e9:.4f} "
-              f"GFLOP; bound {bound[0]:.5f} ms ({bound[1]})")
-        figs.append((label, err, ms, plain, library, bound))
-    _, err, ms, plain, library, bound = figs[0]
+              f"GFLOP; bound {bound[0]:.5f} ms ({bound[1]}); kernel "
+              f"{ms / bound[0]:.2f}x the bound"
+              + ("" if ms_cold is None else
+                 f"; cold L2 {ms_cold:.4f} ms ({ms_cold / bound[0]:.2f}x)"))
+        figs.append((label, err, ms, plain, library, bound, ms_cold))
+    _, err, ms, plain, library, bound, _ = figs[0]
     return _row("bandedsandwich",
                 "pislamfusion_tpu_torch/csrc/bandedsandwich.cu",
                 "pislamfusion_tpu/ops/stencil_pallas.py:178", max(errs), ms,
@@ -689,6 +740,16 @@ def profile_frames(run, k: int):
         print(title + ":")
         for name, us in sorted(d.items(), key=lambda kv: -kv[1])[:15]:
             print(f"  {us / 1e3 / k:9.3f}  {name[:100]}")
+    # the port's kernels, every instantiation of each summed (K1 is two
+    # kernels, the others one `<name>_kernel` each)
+    from pislamfusion_tpu_torch import _build
+    marks = {n: (f"{n}_kernel",) for n in _build.KERNELS}
+    marks["flatpyr"] = ("::row_pass(", "::col_pass(")
+    ours = {n: sum(us for name, us in dev.items()
+                   if any(m in name for m in marks[n]))
+            for n in _build.KERNELS}
+    print("port kernels, device ms/frame: " + ", ".join(
+        f"{n} {us / 1e3 / k:.4f}" for n, us in ours.items() if us))
 
 
 def main() -> int:
@@ -815,10 +876,13 @@ def main() -> int:
              for label, a, r in (
                  ("orientation grid", torch.zeros_like(cx), 4.5),
                  ("descriptor grid", angle, 1.5 * sp.desc_grid / 2.0))]
-    k6 = check_bilineargrid(grad, grids)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    k6 = check_bilineargrid(grad, grids, flush)
     # K8 at the shapes of the Map2D path (Type 3: the full-res patch's
     # Laplacian pyrDown and pyrUp, the weight chain, blended()'s pyrUp of
-    # the canvas bands) and of FastVO's half-res feed pyramid
+    # the canvas bands) and of FastVO's feed (the 1080p source's pyrDown,
+    # the half-res patch's pyramid, band 0's weight pyrUp); the two
+    # largest reads also with a cold L2
     from pislamfusion_tpu_torch.ops import mosaic as M
     patch = sw.warp_patch(rgb0, h_full, full)[0]
     w0 = M.analytic_weight_pyramid(h_full, (H, W), full, 0)[0]
@@ -826,20 +890,25 @@ def main() -> int:
     lap1 = torch.from_numpy(np.random.default_rng(8).normal(
         0, 8, (ch // 2, cw // 2, 3)).astype(np.float32)).to(dev)
     fv_patch = sw.warp_patch(src, h_hs, half)[0]
+    w_half = M.analytic_weight_pyramid(Hc2i @ s_two, (H, W), half, 0)[0]
     p0, p1 = full[0], full[0] // 2
     k8, k8_figs = check_bandedsandwich([
         (f"Map2D pyrDown {p0}^2x3", patch, im.pyr_tables(
-            "down", p0, p0, p1, p1)),
+            "down", p0, p0, p1, p1), True),
         (f"Map2D pyrUp {p1}^2x3", im.pyr_down(patch), im.pyr_tables(
-            "up", p1, p1, p0, p0)),
+            "up", p1, p1, p0, p0), False),
         (f"Map2D weight pyrDown {p0}^2x1", w0, im.pyr_tables(
-            "down", p0, p0, p1, p1)),
+            "down", p0, p0, p1, p1), False),
         (f"Map2D blended() canvas pyrUp {cw // 2}x{ch // 2}x3", lap1,
-         im.pyr_tables("up", ch // 2, cw // 2, ch, cw)),
+         im.pyr_tables("up", ch // 2, cw // 2, ch, cw), False),
         (f"FastVO pyrDown {half[0]}^2x3", fv_patch, im.pyr_tables(
-            "down", half[0], half[1], half[0] // 2, half[1] // 2)),
-    ])
-    del m2d, patch, w0, lap1, fv_patch
+            "down", half[0], half[1], half[0] // 2, half[1] // 2), False),
+        (f"FastVO source pyrDown {H}x{W}x3", rgb0, im.pyr_tables(
+            "down", H, W, (H + 1) // 2, (W + 1) // 2), True),
+        (f"FastVO weight pyrUp {half[0]}^2x1", w_half, im.pyr_tables(
+            "up", half[0], half[1], 2 * half[0], 2 * half[1]), False),
+    ], flush)
+    del m2d, patch, w0, lap1, fv_patch, w_half, flush
     rows = [k1, k2, k3, k4, k5, k6, k7, k8]
     wrappers = {"flatpyr": flatpyr.build_flat_pyramid,
                 "patchgather": pg.gather_patches, "shearwarp": sw.warp_patch,

@@ -17,102 +17,281 @@
 // merely close. No TF32 (the TPU kernel ran at Precision.HIGHEST).
 //
 // Bound on the H100: bytes. A 1536^2 x 3 pyrDown reads 28.3 MB and writes
-// 7.1 MB against ~0.2 GFLOP. One block owns a 32x32-pixel output tile
-// with all its channels: it stages the tile's input slab (the union of its
-// rows' and columns' spans, 67 x 67 pixels for pyrDown, 18 x 18 for pyrUp)
-// in shared memory with coalesced row reads, runs the row pass from there
-// into shared memory and the column pass out to device memory, so the
-// row-pass intermediate never leaves the SM, which is what the TPU kernel
-// kept in VMEM. Neighbouring threads read neighbouring shared words in the
-// row pass and write neighbouring output words in the column pass.
+// 7.1 MB against ~0.05 G one-operation f32 instructions. The design keeps
+// the HBM busy:
+// - A persistent grid (as many blocks as fit, each walking output tiles
+//   blockIdx.x, + gridDim.x, ...) stages the NEXT tile's input slab and
+//   span tables into a second shared buffer with cp.async while it computes
+//   the current one (double buffering, commit_group / wait_group 1).
+// - Tiles are TR output rows x TC output columns with all channels, chosen
+//   on the host (stencil.sandwich_plan) so that the slab, its twin and the
+//   row-pass result fit 4 or more blocks an SM (32 warps at the 1536^2 x 3
+//   pyrDown: 8 x 40 tiles, 49 KB).
+// - Slab rows are copied 16 bytes at a time when a row of x is a whole
+//   number of 16-byte words (W * C % 4 == 0 and x 16-byte aligned): the
+//   copy starts at the aligned word below the window and the slab keeps
+//   that `lead` (0-3 floats); otherwise 4 bytes at a time, lead 0. One
+//   code path.
+// - No division or global table read inside the loops: C (1 or 3) and the
+//   tap bound K (3 for pyrUp, 5 for pyrDown) are template parameters, the
+//   taps loop is unrolled with `if (k < n)` (the order kept, no zero tap
+//   added), the per-tile span tables sit in shared memory, and both passes
+//   map threads in 2D with power-of-two widths. The row pass reads and
+//   writes float4; the column pass gives consecutive lanes consecutive
+//   output words, so a warp's stores are one coalesced 128-byte row
+//   segment and its shared reads at most 2-way conflicted (a float4 a
+//   lane would read 8 words apart: 8-way).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TILE = 32;
 constexpr int THREADS = 256;
 
-__global__ void bandedsandwich_kernel(
-    const float* __restrict__ x, int H, int W, int C, int Ho, int Wo,
-    const int* __restrict__ row_start, const int* __restrict__ row_len,
-    const float* __restrict__ row_w, int kr,
-    const int* __restrict__ col_start, const int* __restrict__ col_len,
-    const float* __restrict__ col_w, int kc,
-    const int* __restrict__ tile_r0, const int* __restrict__ tile_rn,
-    const int* __restrict__ tile_c0, const int* __restrict__ tile_cn,
-    int pitch, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int rn = tile_rn[blockIdx.y];
-  float* slab = smem;                 // [rn, pitch]: input rows x (col, ch)
-  float* t1 = smem + rn * pitch;      // [TILE, pitch]: row-pass result
-  const int y0 = blockIdx.y * TILE;
-  const int x0 = blockIdx.x * TILE;
-  const int r0 = tile_r0[blockIdx.y];
-  const int c0 = tile_c0[blockIdx.x];
-  const int qn = tile_cn[blockIdx.x] * C;   // live words of a slab row
-  const float* xb = x + (long long)blockIdx.z * H * W * C;
-  float* ob = out + (long long)blockIdx.z * Ho * Wo * C;
-  for (int i = threadIdx.x; i < rn * qn; i += blockDim.x) {
-    const int r = i / qn;
-    const int q = i - r * qn;
-    slab[r * pitch + q] = xb[((long long)(r0 + r) * W + c0) * C + q];
+struct Plan {
+  int B, H, W, Ho, Wo;
+  int ntr, ntc, tr, tc;   // tiles down and across, output rows and columns a tile
+  int sr, pitch;          // slab rows, floats a slab row (a multiple of 4)
+  int rm, cm;             // words of a row tile's / column tile's span table
+  int lgr;                // log2 of the row pass's threads a row (<= 8)
+  int lgw;                // log2 of the column pass's warps a row (<= 3)
+  int vec;                // 16-byte copies of x
+  const int* tile_r0;     // [ntr] first input row of a tile row
+  const int* tile_rn;     // [ntr] input rows it reads
+  const int* tile_c0;     // [ntc] first input column of a tile column
+  const int* tile_cn;     // [ntc] input columns it reads
+  // [ntr, rm]: offset of each row's span in the slab [tr], its length [tr],
+  // its weights (float bits) [K][tr]; [ntc, cm] the same for the columns,
+  // offsets in floats
+  const int* rmeta;
+  const int* cmeta;
+};
+
+struct Tile {
+  int b, tyt, txt, r0, rn, c0, qn, lead;
+};
+
+__device__ __forceinline__ void cp_async16(void* s, const void* g) {
+  const unsigned sa = (unsigned)__cvta_generic_to_shared(s);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa),
+               "l"(g)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* s, const void* g) {
+  const unsigned sa = (unsigned)__cvta_generic_to_shared(s);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(sa),
+               "l"(g)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+template <int C>
+__device__ __forceinline__ Tile tile_of(const Plan& p, int t) {
+  Tile T;
+  T.txt = t % p.ntc;          // once a tile, not in a loop
+  const int rest = t / p.ntc;
+  T.tyt = rest % p.ntr;
+  T.b = rest / p.ntr;
+  T.r0 = __ldg(p.tile_r0 + T.tyt);
+  T.rn = __ldg(p.tile_rn + T.tyt);
+  T.c0 = __ldg(p.tile_c0 + T.txt);
+  T.qn = __ldg(p.tile_cn + T.txt) * C;
+  T.lead = p.vec ? (T.c0 * C) & 3 : 0;
+  return T;
+}
+
+// Issue the copies of tile T's slab and span tables into one stage.
+template <int C>
+__device__ __forceinline__ void stage_tile(const Plan& p,
+                                           const float* __restrict__ x,
+                                           const Tile& T, float* slab,
+                                           int* rmeta, int* cmeta) {
+  const int tid = threadIdx.x;
+  const long long rstride = (long long)p.W * C;
+  const float* src =
+      x + ((long long)T.b * p.H + T.r0) * rstride + (long long)T.c0 * C -
+      T.lead;
+  if (p.vec) {
+    const int n4 = (T.lead + T.qn + 3) >> 2;
+    const int lx = p.lgr;
+    for (int r = tid >> lx; r < T.rn; r += THREADS >> lx)
+      for (int c = tid & ((1 << lx) - 1); c < n4; c += 1 << lx)
+        cp_async16(slab + r * p.pitch + 4 * c, src + r * rstride + 4 * c);
+  } else {
+    const int lx = min(p.lgr + 2, 8);
+    for (int r = tid >> lx; r < T.rn; r += THREADS >> lx)
+      for (int c = tid & ((1 << lx) - 1); c < T.qn; c += 1 << lx)
+        cp_async4(slab + r * p.pitch + c, src + r * rstride + c);
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < TILE * qn; i += blockDim.x) {
-    const int ty = i / qn;
-    const int q = i - ty * qn;
-    const int y = y0 + ty;
-    float acc = 0.f;
-    if (y < Ho) {
-      const float* src = slab + (row_start[y] - r0) * pitch + q;
-      const float* wt = row_w + (long long)y * kr;
-      const int n = row_len[y];
-      for (int k = 0; k < n; ++k)
-        acc = __fadd_rn(acc, __fmul_rn(wt[k], src[k * pitch]));
-    }
-    t1[ty * pitch + q] = acc;
-  }
-  __syncthreads();
-  const int tc = TILE * C;
-  for (int i = threadIdx.x; i < TILE * tc; i += blockDim.x) {
-    const int ty = i / tc;
-    const int r = i - ty * tc;
-    const int xl = r / C;
-    const int c = r - xl * C;
-    const int y = y0 + ty;
-    const int xo = x0 + xl;
-    if (y < Ho && xo < Wo) {
-      const float* src = t1 + ty * pitch + (col_start[xo] - c0) * C + c;
-      const float* wt = col_w + (long long)xo * kc;
-      const int n = col_len[xo];
-      float acc = 0.f;
-      for (int k = 0; k < n; ++k)
-        acc = __fadd_rn(acc, __fmul_rn(wt[k], src[k * C]));
-      ob[((long long)y * Wo + xo) * C + c] = acc;
+  const int* rs = p.rmeta + (long long)T.tyt * p.rm;
+  for (int i = tid; i < (p.rm >> 2); i += THREADS)
+    cp_async16(rmeta + 4 * i, rs + 4 * i);
+  const int* cs = p.cmeta + (long long)T.txt * p.cm;
+  for (int i = tid; i < (p.cm >> 2); i += THREADS)
+    cp_async16(cmeta + 4 * i, cs + 4 * i);
+}
+
+__device__ __forceinline__ void tap4(float4& acc, float w, const float4& v) {
+  acc.x = __fadd_rn(acc.x, __fmul_rn(w, v.x));
+  acc.y = __fadd_rn(acc.y, __fmul_rn(w, v.y));
+  acc.z = __fadd_rn(acc.z, __fmul_rn(w, v.z));
+  acc.w = __fadd_rn(acc.w, __fmul_rn(w, v.w));
+}
+
+// Rows: t1[ty, :] from the slab, a float4 a thread, 1 << lgr threads a row.
+// Rows past Ho have length 0 and give 0.
+template <int K>
+__device__ __forceinline__ void row_pass(const Plan& p, const Tile& T,
+                                         const float* slab, const int* rm,
+                                         float* t1) {
+  const int tid = threadIdx.x;
+  const int n4 = (T.lead + T.qn + 3) >> 2;
+  const int lx = p.lgr;
+  const int p4 = p.pitch >> 2;
+  const float4* s4 = reinterpret_cast<const float4*>(slab);
+  float4* o4 = reinterpret_cast<float4*>(t1);
+  for (int ty = tid >> lx; ty < p.tr; ty += THREADS >> lx) {
+    const int off = rm[ty];
+    const int n = rm[p.tr + ty];
+    float w[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) w[k] = __int_as_float(rm[(2 + k) * p.tr + ty]);
+    for (int c = tid & ((1 << lx) - 1); c < n4; c += 1 << lx) {
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (k < n) tap4(acc, w[k], s4[(off + k) * p4 + c]);
+      o4[ty * p4 + c] = acc;
     }
   }
 }
 
+// Columns: each lane one output word j = xo * C + c of a row, 32 << lgw
+// lanes a row, 8 >> lgw rows at a time; its span's table read once for
+// all the rows it takes.
+template <int C, int K>
+__device__ __forceinline__ void col_pass(const Plan& p, const Tile& T,
+                                         const float* t1, const int* cm,
+                                         float* __restrict__ out) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int jg = warp & ((1 << p.lgw) - 1);
+  const int rstep = (THREADS >> 5) >> p.lgw;
+  const int x0 = T.txt * p.tc;
+  const int y0 = T.tyt * p.tr;
+  const int nj = min(p.tc, p.Wo - x0) * C;
+  const int yn = min(p.tr, p.Ho - y0);
+  const long long ostride = (long long)p.Wo * C;
+  float* ob = out + ((long long)T.b * p.Ho + y0) * ostride + (long long)x0 * C;
+  for (int j = (jg << 5) + lane; j < nj; j += 32 << p.lgw) {
+    const int xo = j / C;       // C is a compile-time constant
+    const int c = j - xo * C;
+    const int n = cm[p.tc + xo];
+    float w[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) w[k] = __int_as_float(cm[(2 + k) * p.tc + xo]);
+    const float* src = t1 + T.lead + cm[xo] + c;
+    for (int ty = warp >> p.lgw; ty < yn; ty += rstep) {
+      const float* s = src + ty * p.pitch;
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (k < n) acc = __fadd_rn(acc, __fmul_rn(w[k], s[k * C]));
+      ob[ty * ostride + j] = acc;
+    }
+  }
+}
+
+template <int C, int K>
+__global__ void __launch_bounds__(THREADS, 4)
+    bandedsandwich_kernel(const float* __restrict__ x,
+                          float* __restrict__ out, const Plan p) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int stage = p.sr * p.pitch + p.rm + p.cm;   // floats a stage
+  float* t1 = smem + 2 * stage;
+  const int ntiles = p.B * p.ntr * p.ntc;
+  int t = blockIdx.x;
+  if (t >= ntiles) return;
+  Tile cur = tile_of<C>(p, t);
+  stage_tile<C>(p, x, cur, smem, reinterpret_cast<int*>(smem + p.sr * p.pitch),
+                reinterpret_cast<int*>(smem + p.sr * p.pitch + p.rm));
+  cp_commit();
+  for (int s = 0;; s ^= 1) {
+    const int tn = t + gridDim.x;
+    Tile nxt = cur;
+    if (tn < ntiles) {
+      nxt = tile_of<C>(p, tn);
+      float* nb = smem + (s ^ 1) * stage;
+      stage_tile<C>(p, x, nxt, nb, reinterpret_cast<int*>(nb + p.sr * p.pitch),
+                    reinterpret_cast<int*>(nb + p.sr * p.pitch + p.rm));
+    }
+    cp_commit();              // an empty group on the last tile
+    cp_wait_all_but_one();    // the current tile's copies have landed
+    __syncthreads();
+    const float* slab = smem + s * stage;
+    const int* rm = reinterpret_cast<const int*>(slab + p.sr * p.pitch);
+    row_pass<K>(p, cur, slab, rm, t1);
+    __syncthreads();
+    col_pass<C, K>(p, cur, t1, rm + p.rm, out);
+    __syncthreads();          // this stage is refilled next iteration
+    if (tn >= ntiles) break;
+    t = tn;
+    cur = nxt;
+  }
+}
+
+typedef void (*KernelFn)(const float*, float*, const Plan);
+
+KernelFn pick(int C, int K) {
+  if (C == 1 && K == 3) return bandedsandwich_kernel<1, 3>;
+  if (C == 1 && K == 5) return bandedsandwich_kernel<1, 5>;
+  if (C == 3 && K == 3) return bandedsandwich_kernel<3, 3>;
+  if (C == 3 && K == 5) return bandedsandwich_kernel<3, 5>;
+  return nullptr;
+}
+
 }  // namespace
 
-// x: [B, H, W, C] f32, out: [B, Ho, Wo, C] f32, both contiguous. sr: the
-// largest tile_rn; pitch: the largest tile_cn times C (the shared-memory
-// row pitch in floats).
+// Blocks of the (C, K) kernel resident on one SM with `smem` bytes of
+// dynamic shared memory each (registers included), or -1 on an error.
+extern "C" int bandedsandwich_occupancy(int C, int K, int smem) {
+  KernelFn fn = pick(C, K);
+  if (fn == nullptr) return -1;
+  if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess)
+    return -1;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, THREADS,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// x: [B, H, W, C] f32, out: [B, Ho, Wo, C] f32, both contiguous; the plan's
+// tables on the device (stencil.sandwich_plan); `grid` persistent blocks.
 extern "C" int bandedsandwich_launch(
-    const float* x, int B, int H, int W, int C, int Ho, int Wo,
-    const int* row_start, const int* row_len, const float* row_w, int kr,
-    const int* col_start, const int* col_len, const float* col_w, int kc,
-    const int* tile_r0, const int* tile_rn, const int* tile_c0,
-    const int* tile_cn, int sr, int pitch, float* out, void* stream) {
-  const size_t smem = (size_t)(sr + TILE) * pitch * sizeof(float);
+    const float* x, int B, int H, int W, int C, int K, int Ho, int Wo,
+    int ntr, int ntc, int tr, int tc, int sr, int pitch, int rm, int cm,
+    int lgr, int lgw, int vec, const int* tile_r0, const int* tile_rn,
+    const int* tile_c0, const int* tile_cn, const int* rmeta,
+    const int* cmeta, int smem, int grid, float* out, void* stream) {
+  KernelFn fn = pick(C, K);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      bandedsandwich_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((Wo + TILE - 1) / TILE, (Ho + TILE - 1) / TILE, B);
-  bandedsandwich_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      x, H, W, C, Ho, Wo, row_start, row_len, row_w, kr, col_start, col_len,
-      col_w, kc, tile_r0, tile_rn, tile_c0, tile_cn, pitch, out);
+  Plan p{B,   H,       W,       Ho,      Wo,      ntr,     ntc,   tr,
+         tc,  sr,      pitch,   rm,      cm,      lgr,     lgw,   vec,
+         tile_r0, tile_rn, tile_c0, tile_cn, rmeta, cmeta};
+  fn<<<grid, THREADS, smem, (cudaStream_t)stream>>>(x, out, p);
   return (int)cudaGetLastError();
 }

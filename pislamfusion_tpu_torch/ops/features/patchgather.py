@@ -30,10 +30,12 @@ function the Pallas interpreter computes. On the H100 K6 is bound by
 bytes: 1000 keypoints x 256 samples x 2 channels write 2 MB and read the
 pixels the grids cover. The TPU kernel DMA'd an aligned slab per keypoint
 and evaluated samples as one-hot MXU products because a TPU cannot
-gather; the CUDA kernel (`csrc/bilineargrid.cu`) is one thread per
-(keypoint, sample) that reads the four taps of every channel, from L2
-where grids overlap, rounding each product and sum on its own so that
-it equals the plain version.
+gather; the CUDA kernel (`csrc/bilineargrid.cu`) gives each keypoint
+four warps (its geometry computed by one lane of each and broadcast) and
+each thread 2 samples, their offsets read as float2 and each tap's two
+channels as one float2, from L2 where grids overlap, rounding each
+product and sum on its own so that it equals the plain version. It takes
+SIFT's shapes only (C 2, M even); the wrapper raises on others.
 """
 from __future__ import annotations
 
@@ -149,6 +151,12 @@ def bilinear_grid_plain(img, centers, rel, radius: int = 16):
     return (1.0 - fx) * a0 + fx * a1
 
 
+def _aligned(t, nbytes: int):
+    """t, or a fresh copy of it where its data does not start on an
+    `nbytes` boundary (the kernel's vector loads need it)."""
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
+
+
 def bilinear_grid(img, centers, rel, radius: int = 16):
     """img: [H, W, C] float32; centers: [K, 2] int32 (x, y) image points;
     rel: [K, 2, M] float32 sample offsets (dx, dy rows) from the centre,
@@ -167,12 +175,15 @@ def bilinear_grid(img, centers, rel, radius: int = 16):
             or rel.dtype != torch.float32):
         raise ValueError("bilinear_grid: centers must be [K, 2] and rel "
                          "float32 [K, 2, M] on img's device")
-    img = img.contiguous()
-    centers = centers.to(torch.int32).contiguous()
-    rel = rel.contiguous()
     H, W, C = img.shape
     K, _, M = rel.shape
-    WH, XA, WWpx = _slab_dims(C, radius)
+    if C != 2 or M % 2:
+        raise ValueError(f"bilinear_grid: the kernel takes C == 2 and M "
+                         f"even (SIFT's grids), not C {C}, M {M}")
+    img = _aligned(img.contiguous(), 8)
+    centers = _aligned(centers.to(torch.int32).contiguous(), 8)
+    rel = _aligned(rel.contiguous(), 8)
+    WH, _, WWpx = _slab_dims(C, radius)
     out = torch.empty((K, M, C), dtype=torch.float32, device=img.device)
     if K == 0 or M == 0:
         return out
@@ -180,11 +191,11 @@ def bilinear_grid(img, centers, rel, radius: int = 16):
     fn = lib.bilineargrid_launch
     fn.restype = ctypes.c_int
     V, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [V, I, I, I, V, V, I, I, I, I, I, I, V, V]
+    fn.argtypes = [V, I, I, V, V, I, I, I, I, I, V, V]
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = fn(img.data_ptr(), H, W, C, centers.data_ptr(), rel.data_ptr(),
-                 K, M, radius, WH, XA, WWpx, out.data_ptr(), stream)
+        err = fn(img.data_ptr(), H, W, centers.data_ptr(), rel.data_ptr(),
+                 K, M, radius, WH, WWpx, out.data_ptr(), stream)
     _build.check(err, "bilineargrid")
     bilinear_grid.launches += 1
     return out

@@ -41,7 +41,9 @@ reference's `can_fuse` was the TPU's VMEM budget and is not carried.
 (`banded_sandwich_plain`) gathers the span tap by tap and sums in tap
 order, rows first, and the kernel (`csrc/bandedsandwich.cu`) does the
 same arithmetic in the same order, so the two are equal. Neither forms a
-dense [n, n] product.
+dense [n, n] product. `sandwich_plan` is the kernel's launch plan, all
+that the host computes for it: the tile shape, each tile's input window,
+the per-tile span tables it stages, the tap bound and the shared memory.
 """
 from __future__ import annotations
 
@@ -57,7 +59,7 @@ from ..core.device import device_const
 from . import image as im
 
 _BLK = 128          # the TPU kernel's tile, for the fusability verdict
-TILE = 32           # the CUDA kernel's output tile (rows and columns)
+TILE = 32           # K5's output tile (rows and columns), csrc/bandedstack.cu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -330,8 +332,7 @@ def row_spans(m: np.ndarray):
 @dataclasses.dataclass(frozen=True)
 class SandwichTables:
     """Host tables of one sandwich mh [Ho, H], mw [Wo, W]: each row's
-    nonzero span per matrix, and per 32-row (32-column) output tile of the
-    kernel the first input row (column) and the count its spans cover."""
+    nonzero span per matrix."""
     key: tuple
     in_shape: tuple          # (H, W)
     row_start: np.ndarray    # [Ho] int32
@@ -340,10 +341,6 @@ class SandwichTables:
     col_start: np.ndarray    # [Wo] int32
     col_len: np.ndarray      # [Wo] int32
     col_w: np.ndarray        # [Wo, KC] float32
-    tile_r0: np.ndarray      # [ceil(Ho / 32)] int32
-    tile_rn: np.ndarray
-    tile_c0: np.ndarray      # [ceil(Wo / 32)] int32
-    tile_cn: np.ndarray
 
     @property
     def out_shape(self):
@@ -352,13 +349,9 @@ class SandwichTables:
 
 def sandwich_tables(key, mh: np.ndarray, mw: np.ndarray) -> SandwichTables:
     """The tables of mh @ x @ mw^T; `key` names the pair (device copies of
-    the tables are cached under it)."""
-    rs, rl, rw = row_spans(mh)
-    cs, cl, cw = row_spans(mw)
-    tr0, trn = _tile_windows(rs[None], rl[None])
-    tc0, tcn = _tile_windows(cs[None], cl[None])
-    return SandwichTables(key, (mh.shape[1], mw.shape[1]), rs, rl, rw,
-                          cs, cl, cw, tr0, trn, tc0, tcn)
+    the tables and the kernel's plans are cached under it)."""
+    return SandwichTables(key, (mh.shape[1], mw.shape[1]),
+                          *row_spans(mh), *row_spans(mw))
 
 
 def _span_taps(start, length, k: int) -> np.ndarray:
@@ -388,16 +381,8 @@ def _sandwich_device(tabs: SandwichTables, device):
         return device_const(("sandwich", name, tabs.key), device,
                             lambda: torch.from_numpy(np.ascontiguousarray(a)))
     return {
-        "row_start": up("row_start", tabs.row_start),
-        "row_len": up("row_len", tabs.row_len),
         "row_w": up("row_w", tabs.row_w),
-        "col_start": up("col_start", tabs.col_start),
-        "col_len": up("col_len", tabs.col_len),
         "col_w": up("col_w", tabs.col_w),
-        "tile_r0": up("tile_r0", tabs.tile_r0),
-        "tile_rn": up("tile_rn", tabs.tile_rn),
-        "tile_c0": up("tile_c0", tabs.tile_c0),
-        "tile_cn": up("tile_cn", tabs.tile_cn),
         "row_taps": up("row_taps", _span_taps(
             tabs.row_start, tabs.row_len, tabs.row_w.shape[1])),
         "col_taps": up("col_taps", _span_taps(
@@ -413,7 +398,214 @@ def banded_sandwich_plain(x, tabs: SandwichTables):
     return _span_apply(t, -2, d["col_taps"], d["col_w"])
 
 
-SMEM_LIMIT = 232448     # bytes of shared memory a block may use on Hopper
+# The kernel's launch plan. Hopper: 228 KB of shared memory an SM, of which
+# a block may use 227 KB and the runtime reserves 1 KB a block; 2048
+# threads an SM.
+SMEM_LIMIT = 232448
+SM_SMEM = 233472
+SM_BLOCK_RESERVED = 1024
+SM_THREADS = 2048
+K8_THREADS = 256                 # csrc/bandedsandwich.cu THREADS
+K8_BLOCKS = 4                    # resident blocks an SM the plan keeps
+# csrc/bandedsandwich.cu's instantiations, (C, tap bound): the tile
+# height of each (pyrDown spans are 5 taps, pyrUp spans 3)
+K8_TILE_ROWS = {(1, 3): 32, (3, 3): 16, (1, 5): 16, (3, 5): 8}
+
+
+def _ceil_log2(n: int) -> int:
+    return max(0, int(n - 1).bit_length())
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _windows(start, length, tile: int):
+    """Per tile of `tile` consecutive outputs: (first input index, count)
+    of the union of its outputs' nonzero spans; (0, 0) where it has none."""
+    n = start.shape[0]
+    nt = -(-n // tile)
+    pad = nt * tile - n
+    live = length > 0
+    big = np.iinfo(np.int64).max
+    start = start.astype(np.int64)
+    lo = np.pad(np.where(live, start, big), (0, pad),
+                constant_values=big).reshape(nt, tile).min(1)
+    hi = np.pad(np.where(live, start + length, -1), (0, pad),
+                constant_values=-1).reshape(nt, tile).max(1)
+    empty = hi < 0
+    return (np.where(empty, 0, lo).astype(np.int32),
+            np.where(empty, 0, hi - lo).astype(np.int32))
+
+
+def _span_meta(start, length, w, first, tile: int, K: int, scale: int):
+    """[n_tiles, words] int32, one row a tile, 16-byte aligned: the offset
+    of each output's span from the tile's first input index (times
+    `scale`: floats a column), its length, then its K weights (float32
+    bits), weight k of output i at word (2 + k) * tile + i. Outputs past
+    the end have length 0."""
+    nt = first.shape[0]
+    pad = nt * tile - start.shape[0]
+    st = np.pad(start, (0, pad)).reshape(nt, tile).astype(np.int64)
+    ln = np.pad(length, (0, pad)).reshape(nt, tile)
+    wk = np.zeros((nt * tile, K), np.float32)
+    wk[:w.shape[0], :w.shape[1]] = w
+    meta = np.zeros((nt, _round4((2 + K) * tile)), np.int32)
+    meta[:, :tile] = np.where(ln > 0, (st - first[:, None]) * scale, 0)
+    meta[:, tile:2 * tile] = ln
+    meta[:, 2 * tile:(2 + K) * tile] = (
+        wk.reshape(nt, tile, K).transpose(0, 2, 1).reshape(nt, K * tile)
+        .view(np.int32))
+    return meta
+
+
+@dataclasses.dataclass(frozen=True)
+class SandwichPlan:
+    """How the K8 kernel cuts one sandwich of C channels: tiles of `tr`
+    output rows by `tc` output columns, each staging its input window
+    (`sr` rows at most, `pitch` floats a row: the window's columns times C
+    plus up to 3 floats of alignment lead) and its span tables (`rmeta`,
+    `cmeta`) twice, plus the row-pass result (`tr` x `pitch`)."""
+    C: int
+    K: int                   # tap bound: every span is at most K long
+    tr: int
+    tc: int
+    tile_r0: np.ndarray      # [ntr] int32 first input row of a tile row
+    tile_rn: np.ndarray      # [ntr] int32 input rows it reads
+    tile_c0: np.ndarray      # [ntc] int32 first input column
+    tile_cn: np.ndarray      # [ntc] int32 input columns it reads
+    rmeta: np.ndarray        # [ntr, rm] int32 (_span_meta)
+    cmeta: np.ndarray        # [ntc, cm] int32
+    sr: int
+    pitch: int
+    lgr: int                 # log2 of the row pass's threads a row
+    lgw: int                 # log2 of the column pass's warps a row
+    smem: int                # bytes of dynamic shared memory a block
+    blocks_per_sm: int       # resident blocks an SM by shared memory and
+                             # threads (the card's count, registers too,
+                             # comes from bandedsandwich_occupancy)
+
+    @property
+    def tiles(self):
+        return self.tile_r0.shape[0], self.tile_c0.shape[0]
+
+
+def tap_bound(tabs: SandwichTables, C: int) -> int:
+    """The kernel's compile-time tap bound for `tabs` on C channels (3 or
+    5). Raises ValueError where no instantiation takes them."""
+    kmax = max(int(tabs.row_len.max()), int(tabs.col_len.max()), 1)
+    K = 3 if kmax <= 3 else 5
+    if (C, K) not in K8_TILE_ROWS or kmax > K:
+        raise ValueError(f"banded_sandwich: the kernel takes C 1 or 3 and "
+                         f"spans of at most 5 taps, not C {C} and "
+                         f"{kmax} taps")
+    return K
+
+
+def tile_plan(tabs: SandwichTables, C: int, K: int, tr: int, tc: int):
+    """The plan of tr x tc output tiles for `tabs` on C channels under tap
+    bound K, or None where a block's shared memory would exceed
+    SMEM_LIMIT."""
+    r0, rn = _windows(tabs.row_start, tabs.row_len, tr)
+    c0, cn = _windows(tabs.col_start, tabs.col_len, tc)
+    sr = int(rn.max())
+    pitch = _round4(3 + int(cn.max()) * C)
+    smem = 4 * (2 * (sr * pitch + _round4((2 + K) * tr)
+                     + _round4((2 + K) * tc)) + tr * pitch)
+    if smem > SMEM_LIMIT:
+        return None
+    return SandwichPlan(
+        C, K, tr, tc, r0, rn, c0, cn,
+        _span_meta(tabs.row_start, tabs.row_len, tabs.row_w, r0, tr, K, 1),
+        _span_meta(tabs.col_start, tabs.col_len, tabs.col_w, c0, tc, K, C),
+        sr, pitch, min(8, _ceil_log2(pitch // 4)),
+        min(3, _ceil_log2(-(-tc * C // 32))), smem,
+        min(SM_THREADS // K8_THREADS, SM_SMEM // (smem + SM_BLOCK_RESERVED)))
+
+
+def sandwich_plan(tabs: SandwichTables, C: int) -> SandwichPlan:
+    """The K8 kernel's launch plan for `tabs` on C channels. The tile
+    height is K8_TILE_ROWS's. The tile width (a multiple of 4 output
+    columns, no wider than the output) is the widest that keeps K8_BLOCKS
+    blocks an SM in shared memory, narrowed until its slab row is at most
+    a power of two of float4s, so that no lane of the row pass idles: the
+    widest tile leaves up to half of them idle, and on an NVIDIA H100
+    that costs more than the narrower tile's wider halo
+    (scripts/torch_k8_plan_sweep.py). Raises ValueError where the kernel
+    cannot take the sandwich (C, a span longer than 5 taps)."""
+    K = tap_bound(tabs, C)
+    tr = K8_TILE_ROWS[(C, K)]
+    fits = []
+    for tc in range(4, _round4(tabs.out_shape[1]) + 1, 4):
+        plan = tile_plan(tabs, C, K, tr, tc)
+        if plan is None or plan.blocks_per_sm < K8_BLOCKS:
+            break
+        fits.append(plan)
+    if not fits:
+        raise ValueError(f"banded_sandwich: no {tr}-row tile keeps "
+                         f"{K8_BLOCKS} blocks an SM")
+    lanes = 1 << ((fits[-1].pitch // 4).bit_length() - 1)
+    return next(p for p in reversed(fits) if p.pitch // 4 <= lanes)
+
+
+def plan_on_device(plan: SandwichPlan, device):
+    """(plan, its tables on `device`, the kernel's resident blocks an SM
+    there, the device's SM count): what `launch_plan` takes."""
+    d = {name: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+         for name, a in (("tile_r0", plan.tile_r0), ("tile_rn", plan.tile_rn),
+                         ("tile_c0", plan.tile_c0), ("tile_cn", plan.tile_cn),
+                         ("rmeta", plan.rmeta), ("cmeta", plan.cmeta))}
+    fn = _build.load("bandedsandwich").bandedsandwich_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3
+    with torch.cuda.device(device):
+        occ = fn(plan.C, plan.K, plan.smem)
+    if occ < 1:
+        raise RuntimeError(f"banded_sandwich: the kernel fits no block with "
+                           f"{plan.smem} bytes of shared memory (occupancy "
+                           f"{occ})")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return plan, d, occ, sms
+
+
+_PLANS: dict = {}
+
+
+def _plan_on(tabs: SandwichTables, C: int, device):
+    """plan_on_device(sandwich_plan(tabs, C), device), made on first use."""
+    device = torch.device(device)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    key = (tabs.key, C, index)
+    if key not in _PLANS:
+        _PLANS[key] = plan_on_device(sandwich_plan(tabs, C), device)
+    return _PLANS[key]
+
+
+def launch_plan(xb, out, on_device):
+    """Launch the kernel on xb [B, H, W, C] into out [B, Ho, Wo, C] (both
+    contiguous float32 on the card) under `on_device` (plan_on_device's
+    tuple). Counts no launch: `banded_sandwich` is the wrapper."""
+    plan, d, occ, sms = on_device
+    B, H, W, C = xb.shape
+    _, Ho, Wo, _ = out.shape
+    ntr, ntc = plan.tiles
+    vec = int(W * C % 4 == 0 and xb.data_ptr() % 16 == 0)
+    fn = _build.load("bandedsandwich").bandedsandwich_launch
+    fn.restype = ctypes.c_int
+    V, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [V] + [I] * 18 + [V] * 6 + [I, I, V, V]
+    with torch.cuda.device(xb.device):
+        stream = torch.cuda.current_stream(xb.device).cuda_stream
+        err = fn(xb.data_ptr(), B, H, W, C, plan.K, Ho, Wo, ntr, ntc,
+                 plan.tr, plan.tc, plan.sr, plan.pitch,
+                 plan.rmeta.shape[1], plan.cmeta.shape[1], plan.lgr,
+                 plan.lgw, vec, d["tile_r0"].data_ptr(),
+                 d["tile_rn"].data_ptr(), d["tile_c0"].data_ptr(),
+                 d["tile_cn"].data_ptr(), d["rmeta"].data_ptr(),
+                 d["cmeta"].data_ptr(), plan.smem,
+                 min(B * ntr * ntc, occ * sms), out.data_ptr(), stream)
+    _build.check(err, "bandedsandwich")
 
 
 def banded_sandwich(x, tabs: SandwichTables):
@@ -435,31 +627,10 @@ def banded_sandwich(x, tabs: SandwichTables):
     Ho, Wo = tabs.out_shape
     xb = x.reshape((-1, H, W, C)).contiguous()
     B = xb.shape[0]
-    sr = int(tabs.tile_rn.max())
-    pitch = int(tabs.tile_cn.max()) * C
-    smem = (sr + TILE) * pitch * 4
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"banded_sandwich: a {TILE}-px tile's slab needs "
-                         f"{smem} bytes of shared memory, more than "
-                         f"{SMEM_LIMIT}")
-    d = _sandwich_device(tabs, x.device)
     out = torch.empty((B, Ho, Wo, C), dtype=torch.float32, device=x.device)
-    fn = _build.load("bandedsandwich").bandedsandwich_launch
-    fn.restype = ctypes.c_int
-    V, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [V, I, I, I, I, I, I, V, V, V, I, V, V, V, I, V, V, V, V,
-                   I, I, V, V]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(xb.data_ptr(), B, H, W, C, Ho, Wo,
-                 d["row_start"].data_ptr(), d["row_len"].data_ptr(),
-                 d["row_w"].data_ptr(), tabs.row_w.shape[1],
-                 d["col_start"].data_ptr(), d["col_len"].data_ptr(),
-                 d["col_w"].data_ptr(), tabs.col_w.shape[1],
-                 d["tile_r0"].data_ptr(), d["tile_rn"].data_ptr(),
-                 d["tile_c0"].data_ptr(), d["tile_cn"].data_ptr(), sr, pitch,
-                 out.data_ptr(), stream)
-    _build.check(err, "bandedsandwich")
+    if out.numel() == 0:
+        return out.reshape(lead + (Ho, Wo, C))
+    launch_plan(xb, out, _plan_on(tabs, C, x.device))
     banded_sandwich.launches += 1
     return out.reshape(lead + (Ho, Wo, C))
 

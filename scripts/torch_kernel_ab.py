@@ -1,0 +1,189 @@
+"""K6 and K8 from one checkout of the port, for kernel A/B runs.
+
+    python3 scripts/torch_kernel_ab.py ROOT [ROOT ...]
+
+For each ROOT (a checkout of this repository, say the parent commit
+unpacked with `git archive` beside the working tree), in a fresh process
+of its own, imports that checkout's `pislamfusion_tpu_torch`, builds its
+K6 and K8 libraries and times, on the same seeded inputs at the shapes
+`chip_smoke.py` checks:
+
+- K8 (`stencil.banded_sandwich` on `image.pyr_tables`) at the Map2D
+  patch's 1536^2x3 pyrDown and 768^2x3 pyrUp, the 1536^2x1 weight
+  pyrDown, the 1664x1152x3 canvas pyrUp of `blended()`, FastVO's
+  768^2x3 pyrDown, its 1080x1920x3 source pyrDown and its 768^2x1 weight
+  pyrUp;
+- K6 (`patchgather.bilinear_grid`) on a 1080p frame's packed gradient
+  image (2217x1920x2) at 1000 keypoints, on the orientation grid (16x16,
+  radius 4.5 sigma, unrotated) and the descriptor grid (16x16, radius 3
+  sigma, rotated), beside `grid_sample` at the same points.
+
+Each time is the device time of one call from 20 captured in one CUDA
+graph, warm (the inputs in L2 from the call before) and cold (a 128 MB
+write before each call, its own time subtracted; K6's three times, as
+its cold time spreads by some 20 % between graphs): `chip_smoke.graph_ms`
+and `graph_ms_cold` of this script's checkout serve every ROOT. Then,
+where the kernels run among the path's other work, SIFT's FastVO path
+(`chip_smoke.make_fastvo`, detector "sift", 8 frames of bench.py's 1080p
+strip after a warm-up pass) under torch.profiler: K6's and K8's device
+ms a frame, every launch summed. Prints one JSON line a ROOT, in the
+order given: give the roots as A B B A to see the spread beside the
+difference. Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# (label, kind, input h, w, output h, w, channels)
+K8_CASES = (
+    ("Map2D pyrDown 1536^2x3", "down", 1536, 1536, 768, 768, 3),
+    ("Map2D pyrUp 768^2x3", "up", 768, 768, 1536, 1536, 3),
+    ("Map2D weight pyrDown 1536^2x1", "down", 1536, 1536, 768, 768, 1),
+    ("Map2D blended() canvas pyrUp 1664x1152x3", "up", 1152, 1664, 2304,
+     3328, 3),
+    ("FastVO pyrDown 768^2x3", "down", 768, 768, 384, 384, 3),
+    ("FastVO source pyrDown 1080x1920x3", "down", 1080, 1920, 540, 960, 3),
+    ("FastVO weight pyrUp 768^2x1", "up", 768, 768, 1536, 1536, 1),
+)
+
+
+def sift_grids(dev, seed: int = 7):
+    """A 1080p frame's packed gradient image shape (4 octaves, 48 rows
+    between them) with seeded values, 1000 keypoints in octave 0, and the
+    orientation and descriptor grids' (centers, rel) around them."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    Hp, W, K, n = 1080 + 540 + 270 + 135 + 4 * 48, 1920, 1000, 16
+    grad = torch.from_numpy(rng.normal(0, 30, (Hp, W, 2)).astype(
+        np.float32)).to(dev)
+    cx = torch.from_numpy(rng.integers(8, W - 8, K).astype(np.float32))
+    cy = torch.from_numpy(rng.integers(8, 1080 - 8, K).astype(np.float32))
+    sig = torch.from_numpy(rng.uniform(2.0, 3.2, K).astype(np.float32))
+    ang = torch.from_numpy(rng.uniform(0, 2 * np.pi, K).astype(np.float32))
+    lin = (torch.arange(n, dtype=torch.float32) + 0.5) / n * 2.0 - 1.0
+    gv, gu = torch.meshgrid(lin, lin, indexing="ij")
+    gu, gv = gu.reshape(1, -1), gv.reshape(1, -1)
+    grids = {}
+    for label, a, r in (("orientation grid", torch.zeros_like(ang), 4.5),
+                        ("descriptor grid", ang, 3.0)):
+        rad = (r * sig)[:, None]
+        ca, sa = torch.cos(a)[:, None], torch.sin(a)[:, None]
+        px = cx[:, None] + rad * (ca * gu - sa * gv)
+        py = cy[:, None] + rad * (sa * gu + ca * gv)
+        centers = torch.stack([cx, cy], -1).to(torch.int32)
+        rel = torch.stack([px - cx[:, None], py - cy[:, None]], 1)
+        grids[label] = (centers.to(dev), rel.contiguous().to(dev))
+    return grad, grids
+
+
+def sift_path_ms(dev, n: int = 8) -> dict:
+    """K6's and K8's device ms a frame on SIFT's FastVO path over n frames
+    of bench.py's 1080p strip, from torch.profiler, after a warm-up
+    pass."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import make_fastvo, render_strip
+    H, W, fx = 1080, 1920, 1200.0
+    frames, poses = render_strip(n, H, W, fx, 0.12, 6144, dev)
+    make = lambda: make_fastvo(H, W, fx, poses, 1000, 8, 5, dev,  # noqa
+                               "sift")
+    make().process(frames, poses[0])
+    vo = make()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        vo.process(frames, poses[0])
+        torch.cuda.synchronize()
+    us = {"bilineargrid": 0.0, "bandedsandwich": 0.0}
+    for e in prof.events():
+        if e.device_type.name != "CUDA":
+            continue
+        for name in us:
+            if f"{name}_kernel" in e.name:
+                us[name] += e.time_range.end - e.time_range.start
+    return {name: t / 1e3 / n for name, t in us.items()}
+
+
+def one(root: str) -> dict:
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    # the timing code of this script's checkout, the kernels of ROOT's
+    sys.path.insert(0, HERE)
+    from chip_smoke import FLUSH_BYTES, graph_ms, graph_ms_cold
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    from pislamfusion_tpu_torch import _build
+    from pislamfusion_tpu_torch.ops import image as im
+    from pislamfusion_tpu_torch.ops import stencil
+    from pislamfusion_tpu_torch.ops.features import patchgather as pg
+    _build.build_all()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(8)
+    k8 = {}
+    for label, kind, h, w, oh, ow, C in K8_CASES:
+        tabs = im.pyr_tables(kind, h, w, oh, ow)
+        x = torch.from_numpy(rng.uniform(0, 255, (h, w, C)).astype(
+            np.float32)).to(dev)
+        if not torch.equal(stencil.banded_sandwich(x, tabs),
+                           stencil.banded_sandwich_plain(x, tabs)):
+            raise AssertionError(f"K8 {label}: kernel != plain")
+        fn = lambda: stencil.banded_sandwich(x, tabs)  # noqa: E731
+        k8[label] = {"warm": graph_ms(fn), "cold": graph_ms_cold(fn, flush)}
+    grad, grids = sift_grids(dev)
+    Hp, W, _ = grad.shape
+    src = grad.permute(2, 0, 1)[None].contiguous()
+    k6 = {}
+    for label, (centers, rel) in grids.items():
+        R = 16
+        err = float((pg.bilinear_grid(grad, centers, rel, R)
+                     - pg.bilinear_grid_plain(grad, centers, rel, R))
+                    .abs().max())
+        if not err <= 1e-4:
+            raise AssertionError(f"K6 {label}: |kernel - plain| {err}")
+        px = centers[:, 0:1].to(torch.float32) + rel[:, 0]
+        py = centers[:, 1:2].to(torch.float32) + rel[:, 1]
+        gn = torch.stack([px * (2.0 / (W - 1)) - 1.0,
+                          py * (2.0 / (Hp - 1)) - 1.0], -1)[None]
+        fn = lambda: pg.bilinear_grid(grad, centers, rel, R)  # noqa: E731
+        lib = lambda: F.grid_sample(  # noqa: E731
+            src, gn, mode="bilinear", padding_mode="zeros",
+            align_corners=True)
+        k6[label] = {"warm": graph_ms(fn),
+                     "cold": [graph_ms_cold(fn, flush) for _ in range(3)],
+                     "grid_sample": graph_ms(lib)}
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    return {"root": root, "card": card, "k8_ms": k8, "k6_ms": k6,
+            "sift_path_ms_per_frame": sift_path_ms(dev)}
+
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--one":
+        print(json.dumps(one(sys.argv[2])), flush=True)
+        return 0
+    if len(sys.argv) < 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    for root in sys.argv[1:]:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--one", root], capture_output=True,
+                             text=True)
+        if out.returncode != 0:
+            print(out.stdout + out.stderr, file=sys.stderr)
+            return out.returncode
+        print(out.stdout.strip().splitlines()[-1], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -21,7 +21,9 @@ K8 banded sandwich: within 2e-5 of the output's largest magnitude (about
 5e-3 gray at 255) on 0..255 images, for the reference's pyrDown, pyrUp,
 blur and resize matrices (the interpreter's dense 128-blocks and the
 port's spans sum in other orders: 2 f32 ulps, ~3e-5 gray, measured); its
-spans rebuild each matrix exactly.
+spans rebuild each matrix exactly; its launch plan (tile windows, staged
+span tables, tap bound, shared memory) holds at every K8 shape of the
+paths, without JAX.
 K4 fused FAST+NMS+select: equal (0 differing cells in cv2d and ci2d) to
 the interpreted kernel on tests/test_fastselect.py's cases (two levels,
 integer ties, no corners, cell 16); through a packed buffer and level
@@ -344,6 +346,91 @@ def test_bandedsandwich_wrapper_refuses_other_devices():
     tabs = tim.pyr_tables("down", 64, 64, 32, 32)
     with pytest.raises(ValueError):
         tst.banded_sandwich(torch.empty((64, 64, 3), device="meta"), tabs)
+
+
+def _pyr_ladder(h, w, levels, channels):
+    """(kind, h, w, oh, ow, C) of a Laplacian pyramid's K8 calls: the
+    pyrDowns of `levels` levels and the pyrUps back, per channel count."""
+    sizes = [(h, w)]
+    for _ in range(levels):
+        sizes.append(((sizes[-1][0] + 1) // 2, (sizes[-1][1] + 1) // 2))
+    calls = []
+    for c in channels:
+        for big, small in zip(sizes, sizes[1:]):
+            calls += [("down", *big, *small, c), ("up", *small, *big, c)]
+    return calls
+
+
+# the K8 calls of every path (C 3 the image bands, C 1 the weights)
+_K8_PATHS = {
+    "fastvo_1080p": [("down", 1080, 1920, 540, 960, 3),
+                     ("up", 768, 768, 1536, 1536, 1)]
+    + _pyr_ladder(768, 768, 4, (3,)) + _pyr_ladder(1536, 1536, 5, (1,)),
+    "map2d_1536": _pyr_ladder(1536, 1536, 5, (3, 1)),
+    "canvas_3328x2304": _pyr_ladder(2304, 3328, 5, (3,)),
+    "strip_600x640": [("down", 600, 640, 300, 320, 3)]
+    + _pyr_ladder(600, 640, 5, (3, 1)),
+}
+
+
+@pytest.mark.parametrize("path", sorted(_K8_PATHS))
+def test_bandedsandwich_plan_covers_every_span(path):
+    """K8's launch plan at every shape of a path: each tile's staged
+    window holds every span of its outputs (rows, and columns times C
+    with the 16-byte alignment lead in the pitch), the span tables it
+    stages rebuild the spans and weights, the tap bound holds (5 for
+    pyrDown, 3 for pyrUp), the shared memory fits, and 4 blocks fit an
+    SM."""
+    for kind, h, w, oh, ow, C in _K8_PATHS[path]:
+        tabs = tim.pyr_tables(kind, h, w, oh, ow)
+        plan = tst.sandwich_plan(tabs, C)
+        assert plan.K == (5 if kind == "down" else 3)
+        assert max(tabs.row_len.max(), tabs.col_len.max()) <= plan.K
+        ntr, ntc = plan.tiles
+        assert (ntr, ntc) == (-(-oh // plan.tr), -(-ow // plan.tc))
+        rm, cm = plan.rmeta.shape[1], plan.cmeta.shape[1]
+        assert plan.smem == 4 * (2 * (plan.sr * plan.pitch + rm + cm)
+                                 + plan.tr * plan.pitch) <= tst.SMEM_LIMIT
+        assert plan.blocks_per_sm >= tst.K8_BLOCKS
+        assert plan.pitch % 4 == 0 and rm % 4 == 0 and cm % 4 == 0
+        assert plan.tile_cn.max() * C + 3 <= plan.pitch
+        assert plan.tile_rn.max() == plan.sr
+        for (start, length, wts, first, count, meta, tile, scale, n_in) in (
+                (tabs.row_start, tabs.row_len, tabs.row_w, plan.tile_r0,
+                 plan.tile_rn, plan.rmeta, plan.tr, 1, h),
+                (tabs.col_start, tabs.col_len, tabs.col_w, plan.tile_c0,
+                 plan.tile_cn, plan.cmeta, plan.tc, C, w)):
+            t = np.arange(start.shape[0]) // tile
+            assert (first[t] <= start).all()
+            assert (start + length <= first[t] + count[t]).all()
+            assert (first + count <= n_in).all()
+            i = np.arange(start.shape[0]) % tile
+            off = meta[t, i]
+            np.testing.assert_array_equal(off, (start - first[t]) * scale)
+            np.testing.assert_array_equal(meta[t, tile + i], length)
+            got = meta[t[:, None], (2 + np.arange(plan.K))[None, :] * tile
+                       + i[:, None]].view(np.float32)
+            np.testing.assert_array_equal(got[:, :wts.shape[1]], wts)
+            assert (got[:, wts.shape[1]:] == 0).all()
+            # outputs past the end of the last tile take no taps
+            pad = meta[-1, tile + start.shape[0] - (len(first) - 1) * tile:
+                       2 * tile]
+            assert (pad == 0).all()
+        if kind == "down" and (h, w, C) == (1536, 1536, 3):
+            assert (plan.tr, plan.tc) == (8, 40)
+
+
+def test_bandedsandwich_plan_refuses_what_the_kernel_cannot_take():
+    tabs = tim.pyr_tables("down", 64, 64, 32, 32)
+    for C in (2, 4, 5):
+        with pytest.raises(ValueError):
+            tst.sandwich_plan(tabs, C)
+    wide = tuple(float(v) for v in jim.gaussian_kernel1d(3.0, 5))
+    blur = tst.sandwich_tables(("test", "blur11"),
+                               jim._blur_matrix(40, wide, "reflect"),
+                               jim._blur_matrix(48, wide, "reflect"))
+    with pytest.raises(ValueError):
+        tst.sandwich_plan(blur, 1)
 
 
 # K4 cases of tests/test_fastselect.py: (levels, cell)
