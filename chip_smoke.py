@@ -18,10 +18,12 @@ It builds the port's CUDA kernels from `pislamfusion_tpu_torch/csrc/`
    patch's pyrDown and pyrUp, its weight chain, the canvas pyrUp of
    `blended()`, FastVO's half-res pyramid, its 1080p source pyrDown and
    its band-0 weight pyrUp, each with its launch plan and resident blocks
-   an SM), and times the kernel, its plain version and one library call
-   that computes the same function where there is one (each the device
-   time of a call, from 20 calls captured in one CUDA graph), beside its
-   bound; K8's 1536^2x3 pyrDown and 1080p source pyrDown and K6's
+   an SM; K1 and K5 at every octave also print theirs), and times the
+   kernel, its plain version and one library call that computes the same
+   function where there is one (each the device time of a call, from 20
+   calls captured in one CUDA graph), beside its bound (K5 at each of its
+   three octaves, beside the multiply-adds its plan does); K1, K5's
+   octave 0, K8's 1536^2x3 pyrDown and 1080p source pyrDown and K6's
    orientation grid also with a cold L2 (a 128 MB write before each call,
    its own time subtracted);
 2. drives the FastVO paths through `FastVO.process` at 1920x1080 over 24
@@ -224,7 +226,7 @@ def _row(name, source, replaces, err, ms, plain, bound, library):
 # phase 1: each kernel against its plain version at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def check_flatpyr(gray, params):
+def check_flatpyr(gray, params, flush):
     import torch
     from pislamfusion_tpu_torch.ops.features import flatpyr
     H, W = gray.shape
@@ -232,6 +234,12 @@ def check_flatpyr(gray, params):
     if not flatpyr.flat_pyramid_available(H, W, L, sf, cell):
         raise AssertionError(f"K1 does not take {H}x{W} / {L} levels")
     ker = flatpyr.build_flat_pyramid(gray, L, sf, cell)
+    kp = flatpyr.kernel_plan(H, W, L, sf, cell)
+    occ = flatpyr.occupancy(kp, gray.device)
+    print(f"K1 plan: tiles by level {kp.tiles}, tap bounds {kp.taps}, "
+          f"{kp.items.shape[0]} items, {kp.smem} bytes of shared memory a "
+          f"block, {occ} resident blocks an SM "
+          "(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
     pln = flatpyr.build_flat_pyramid_plain(gray, L, sf, cell)
     torch.cuda.synchronize()
     d = (ker - pln).abs()
@@ -250,11 +258,15 @@ def check_flatpyr(gray, params):
              torch.from_numpy(mc).to(gray.device, torch.bfloat16).T)
             for mr, mc in t.mats16]
     g16 = gray.to(torch.bfloat16)
+    kernel = lambda: flatpyr.build_flat_pyramid(gray, L, sf, cell)  # noqa
     ms, plain, library = timed(
-        "K1", lambda: flatpyr.build_flat_pyramid(gray, L, sf, cell),
+        "K1", kernel,
         lambda: flatpyr.build_flat_pyramid_plain(gray, L, sf, cell),
         lambda: [torch.matmul(torch.matmul(mr, g16), mcT)
                  for mr, mcT in mats])
+    print(f"  K1 cold L2: kernel {graph_ms_cold(kernel, flush):.4f} ms (a "
+          f"{FLUSH_BYTES >> 20} MB write before each call, its own time "
+          "subtracted)")
     plan = t.plan
     nbytes = (H * W * 4 + plan.total_rows * plan.wp * 4
               + t.row_w.nbytes + t.row_start.nbytes * 3 + t.col_w.nbytes
@@ -462,14 +474,15 @@ def check_shearwarp(src, homs, patch_hw):
                 times[0][0], times[0][1], bound, library)
 
 
-def check_bandedstack(xs, params):
-    """K5 on each octave input x [h, w] (0..1) of `xs`: kernel vs plain;
-    timed on the first with its plain version and library yardstick, the
-    others alone."""
+def check_bandedstack(xs, params, flush):
+    """K5 on each octave input x [h, w] (0..1) of `xs`: kernel vs plain,
+    its launch plan and resident blocks an SM; each octave timed (warm
+    L2) beside its bound, the first also with a cold L2 and beside its
+    plain version and library yardstick."""
     import torch
     from pislamfusion_tpu_torch.ops import stencil
     from pislamfusion_tpu_torch.ops.features import sift
-    errs = []
+    errs, row = [], None
     for x in xs:
         h, w = x.shape
         tabs = sift._stack_tables(h, w, params)
@@ -480,43 +493,55 @@ def check_bandedstack(xs, params):
         torch.cuda.synchronize()
         errs.append(float((ker - pln).abs().max()))
         print(f"K5 bandedstack {h}x{w}, {tabs.scales} scales, half-widths "
-              f"{[int(n) // 2 for n in tabs.row_len.max(1)]}: max |kernel - "
-              f"plain| {errs[-1]:.3e} (bound 1e-5 on the 0..1 scale; f32 "
-              "sums in another order)")
+              f"{[int(r) for r in tabs.radius]}: max |kernel - plain| "
+              f"{errs[-1]:.3e} (bound 1e-5 on the 0..1 scale; f32 sums in "
+              "another order)")
         if not errs[-1] <= 1e-5:
             raise AssertionError(f"K5 {h}x{w} disagrees with its plain "
                                  "version")
-    x = xs[0]
-    h, w = x.shape
-    tabs = sift._stack_tables(h, w, params)
-    # library yardstick: two dense f32 torch.matmul calls a scale (TF32 off)
-    mhs, mws = stencil._dense_on(tabs, x.device)
-    ms, plain, library = timed(
-        f"K5 {h}x{w}", lambda: stencil.banded_stack(x, tabs),
-        lambda: stencil.banded_stack_plain(x, tabs),
-        lambda: [torch.matmul(torch.matmul(mhs[p], x), mws[p].T)
-                 for p in range(tabs.scales)])
-    nbytes = (1 + tabs.scales) * h * w * 4 + sum(
-        a.nbytes for a in (tabs.row_start, tabs.row_len, tabs.row_w,
-                           tabs.col_start, tabs.col_len, tabs.col_w,
-                           tabs.tile_r0, tabs.tile_rn, tabs.tile_c0,
-                           tabs.tile_cn))
-    ops = 2.0 * (float(tabs.row_len.sum()) * w + float(tabs.col_len.sum())
-                 * h)
-    print(f"  K5 work: {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB")
-    for xo in xs[1:]:       # the other octaves: the kernel beside its bound
-        to = sift._stack_tables(*xo.shape, params)
-        ho, wo = xo.shape
-        bo = bound_ms((1 + to.scales) * ho * wo * 4, 2.0 * (
-            float(to.row_len.sum()) * wo + float(to.col_len.sum()) * ho),
-            FP32_OPS_PER_S)
-        print(f"  K5 {ho}x{wo}: kernel "
-              f"{graph_ms(lambda: stencil.banded_stack(xo, to)):.4f} ms, "
-              f"bound {bo[0]:.5f} ms ({bo[1]})")
+        plan, _, occ, sms = stencil._stack_on(tabs, x.device)
+        print(f"  K5 {h}x{w} plan: {plan.th}-row tiles, widths {plan.tw} "
+              f"(t1 columns {plan.cw}), {plan.n_items} items, "
+              f"{plan.nslot} column block slots, {plan.smem} bytes of "
+              f"shared memory a block, {occ} resident blocks an SM "
+              f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor), grid "
+              f"{min(plan.n_items, occ * sms)}")
+        nbytes = (1 + tabs.scales) * h * w * 4 + sum(
+            a.nbytes for a in (tabs.row_start, tabs.row_len, tabs.row_w,
+                               tabs.col_start, tabs.col_len, tabs.col_w))
+        ops = 2.0 * (float(tabs.row_len.sum()) * w
+                     + float(tabs.col_len.sum()) * h)
+        bound = bound_ms(nbytes, ops, FP32_OPS_PER_S)
+        # the multiply-adds the plan does: each item's row pass over cw
+        # t1 columns, its column pass over its outputs
+        done = sum(2.0 * (2 * r + 1) * min(plan.th, h - ty * plan.th)
+                   * (plan.cw[s] + min(plan.tw[s], w - tx * plan.tw[s]))
+                   for s, r in enumerate(plan.rh)
+                   for ty in range(plan.nty) for tx in range(plan.ntx[s]))
+        kernel = lambda: stencil.banded_stack(x, tabs)  # noqa: E731
+        if row is None:
+            # library yardstick: two dense f32 torch.matmul a scale (TF32
+            # off)
+            mhs, mws = stencil._dense_on(tabs, x.device)
+            ms, plain, library = timed(
+                f"K5 {h}x{w}", kernel,
+                lambda: stencil.banded_stack_plain(x, tabs),
+                lambda: [torch.matmul(torch.matmul(mhs[p], x), mws[p].T)
+                         for p in range(tabs.scales)])
+            cold = graph_ms_cold(kernel, flush)
+            row = (ms, plain, library, bound, nbytes, ops)
+        else:
+            ms, cold = graph_ms(kernel), None
+        print(f"  K5 {h}x{w}: kernel {ms:.4f} ms"
+              + ("" if cold is None else f", cold L2 {cold:.4f} ms")
+              + f", bound {bound[0]:.5f} ms ({bound[1]}), "
+              f"{ms / bound[0]:.2f}x; {ops / 1e9:.3f} GFLOP counted, "
+              f"{done / 1e9:.3f} done by the plan ({done / ops:.2f}x), "
+              f"{nbytes / 1e6:.1f} MB")
+    ms, plain, library, bound, _, _ = row
     return _row("bandedstack", "pislamfusion_tpu_torch/csrc/bandedstack.cu",
                 "pislamfusion_tpu/ops/stencil_pallas.py:338", max(errs), ms,
-                plain,
-                bound_ms(nbytes, ops, FP32_OPS_PER_S), library)
+                plain, bound, library)
 
 
 def check_bilineargrid(grad, grids, flush):
@@ -740,13 +765,11 @@ def profile_frames(run, k: int):
         print(title + ":")
         for name, us in sorted(d.items(), key=lambda kv: -kv[1])[:15]:
             print(f"  {us / 1e3 / k:9.3f}  {name[:100]}")
-    # the port's kernels, every instantiation of each summed (K1 is two
-    # kernels, the others one `<name>_kernel` each)
+    # the port's kernels, every instantiation of each `<name>_kernel`
+    # summed
     from pislamfusion_tpu_torch import _build
-    marks = {n: (f"{n}_kernel",) for n in _build.KERNELS}
-    marks["flatpyr"] = ("::row_pass(", "::col_pass(")
     ours = {n: sum(us for name, us in dev.items()
-                   if any(m in name for m in marks[n]))
+                   if f"{n}_kernel" in name)
             for n in _build.KERNELS}
     print("port kernels, device ms/frame: " + ", ".join(
         f"{n} {us / 1e3 / k:.4f}" for n, us in ours.items() if us))
@@ -804,7 +827,8 @@ def main() -> int:
 
     # ---- phase 1: kernels against their plain versions
     gray = im.rgb_to_gray(frames[0].to(torch.float32))
-    packed, k1 = check_flatpyr(gray, params)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    packed, k1 = check_flatpyr(gray, params, flush)
     plan = orb._flat_plan(H, W, params.n_levels, params.scale_factor,
                           params.cell)
     views = [packed[b + plan.cell:b + plan.cell + lh,
@@ -868,7 +892,7 @@ def main() -> int:
     # every octave input that takes K5 (at 1080p octaves 0-2)
     k5 = check_bandedstack([s[0] for s in stacks if min(s.shape[1:]) >= 256
                             and sift._stack_tables(*s.shape[1:], sp)
-                            is not None], sp)
+                            is not None], sp, flush)
     grad, (cx, cy, sig, bounds), _ = sift.pack_gradients(
         stacks, sift.select_octaves(stacks, sp), (H, W), sp)
     angle = sift._orientations(grad, cx, cy, sig, sp, bounds)
@@ -876,7 +900,6 @@ def main() -> int:
              for label, a, r in (
                  ("orientation grid", torch.zeros_like(cx), 4.5),
                  ("descriptor grid", angle, 1.5 * sp.desc_grid / 2.0))]
-    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     k6 = check_bilineargrid(grad, grids, flush)
     # K8 at the shapes of the Map2D path (Type 3: the full-res patch's
     # Laplacian pyrDown and pyrUp, the weight chain, blended()'s pyrUp of

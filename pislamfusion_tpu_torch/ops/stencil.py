@@ -20,14 +20,21 @@ of f32 multiply-adds for octave 0 against ~50 MB of traffic. The TPU kernel
 ran dense 128-row MXU tiles over a static union window; here the host
 keeps, per output row of each operator, only its nonzero span (start,
 length, weights: every span is contiguous because the reflect folds stay
-inside [0, n)), and the CUDA kernel (`csrc/bandedstack.cu`) gives each
-block a 32x32 output tile of all P scales: it loads the tile's input slab
-(the union of every scale's row and column spans) into shared memory
-once, then per scale runs the row pass into shared memory and the column
-pass out to HBM. The P scales share that one load, which is what the TPU
-kernel kept out of HBM. Skipping the zeros of the dense product changes
-only the f32 summation order. TF32 is not used: the TPU kernel ran at
-Precision.HIGHEST.
+inside [0, n)), and records each scale's interior: away from the folds,
+on [r, n - r), every span is one weight vector shifted, bit for bit
+(`chain_tables` checks it and raises otherwise). The CUDA kernel
+(`csrc/bandedstack.cu`) splits the work into items of one scale and one
+tile (16 or 32 output rows by 32-224 columns), the widest scale first, on
+a persistent grid (`stack_plan`: the largest tiles that still give every
+SM four blocks' worth of items). An item's row pass computes t1 over its
+columns and a halo into shared memory, a thread 16 rows of one column;
+its column pass gives a thread 8 outputs of one row. Interior groups of
+rows or columns multiply by the scale's vector, which the kernel takes in
+its parameters; edge groups by a dense block of their outputs' weights
+that the item stages in shared memory. The kernel is instantiated for
+SIFT's five half-widths and the plan raises on any other chain. Summing
+over spans instead of the dense product changes only the f32 summation
+order. TF32 is not used: the TPU kernel ran at Precision.HIGHEST.
 
 The host tables are built without any dense n^3 product: each banded blur
 matrix is applied in turn to a band of half-width sum(r_i) in float64.
@@ -59,15 +66,22 @@ from ..core.device import device_const
 from . import image as im
 
 _BLK = 128          # the TPU kernel's tile, for the fusability verdict
-TILE = 32           # K5's output tile (rows and columns), csrc/bandedstack.cu
+
+# Hopper: 228 KB of shared memory an SM, of which a block may use 227 KB
+# and the runtime reserves 1 KB a block; 2048 threads an SM.
+SMEM_LIMIT = 232448
+SM_SMEM = 233472
+SM_BLOCK_RESERVED = 1024
+SM_THREADS = 2048
 
 
 @dataclasses.dataclass(frozen=True)
 class StackTables:
     """Host tables of P banded [n, n] operators per axis of an h x w image:
     per output row (or column) the start, length and float32 weights of
-    its nonzero span, and per 32-row (32-column) kernel tile the union of
-    every scale's spans."""
+    its nonzero span, and per scale its interior: the outputs [lo, hi)
+    whose spans are the same vector shifted (start y - r, length 2r + 1,
+    r the scale's composed half-width), and that vector."""
     key: tuple               # (h, w, taps of each chain step)
     row_start: np.ndarray    # [P, h] int32
     row_len: np.ndarray      # [P, h] int32
@@ -75,10 +89,13 @@ class StackTables:
     col_start: np.ndarray    # [P, w] int32
     col_len: np.ndarray      # [P, w] int32
     col_w: np.ndarray        # [P, w, KC] float32
-    tile_r0: np.ndarray      # [ceil(h / 32)] int32 first input row of a tile
-    tile_rn: np.ndarray      # [ceil(h / 32)] int32 input rows of a tile
-    tile_c0: np.ndarray      # [ceil(w / 32)] int32
-    tile_cn: np.ndarray      # [ceil(w / 32)] int32
+    radius: np.ndarray       # [P] int32 composed half-width r of each scale
+    row_lo: np.ndarray       # [P] int32 first interior row (r)
+    row_hi: np.ndarray       # [P] int32 one past the last (max(r, h - r))
+    row_iw: np.ndarray       # [P, KR] float32 interior weights, 0 past 2r + 1
+    col_lo: np.ndarray       # [P] int32
+    col_hi: np.ndarray       # [P] int32
+    col_iw: np.ndarray       # [P, KC] float32
 
     @property
     def shape(self):
@@ -137,17 +154,27 @@ def _compose_chain(n: int, taps_list) -> tuple:
             np.stack(out_w).astype(np.float32))
 
 
-def _tile_windows(start, length):
-    """Per 32-wide kernel tile: (first input index, count) of the union of
-    every scale's spans over the tile's outputs."""
-    n = start.shape[1]
-    t0, tn = [], []
-    for i in range(0, n, TILE):
-        s = start[:, i:i + TILE]
-        e = s + length[:, i:i + TILE]
-        t0.append(int(s.min()))
-        tn.append(int(e.max()) - int(s.min()))
-    return np.asarray(t0, np.int32), np.asarray(tn, np.int32)
+def _interior(start, length, weights, radius):
+    """Per scale p of radius r: (lo, hi, vector) with lo = r, hi = max(r,
+    n - r) and the weights of output lo, after checking bit for bit that
+    every output y in [lo, hi) has start y - r, length 2r + 1 and those
+    weights. Raises ValueError where one does not."""
+    P, n, k = weights.shape
+    lo = np.asarray(radius, np.int32)
+    hi = np.maximum(lo, n - lo).astype(np.int32)
+    vec = np.zeros((P, k), np.float32)
+    for p, r in enumerate(radius):
+        ys = np.arange(lo[p], hi[p])
+        if ys.size == 0:
+            continue
+        vec[p] = weights[p, ys[0]]
+        if not ((start[p, ys] == ys - r).all()
+                and (length[p, ys] == 2 * r + 1).all()
+                and (weights[p, ys] == vec[p]).all()):
+            raise ValueError(f"chain_tables: scale {p} (half-width {r}) is "
+                             f"not translation-invariant on [{lo[p]}, "
+                             f"{hi[p]}) of {n}")
+    return lo, hi, vec
 
 
 @functools.lru_cache(maxsize=16)
@@ -156,10 +183,11 @@ def chain_tables(h: int, w: int, taps_list: tuple) -> StackTables:
     taps per chain step) on an h x w image."""
     rs, rl, rw = _compose_chain(h, taps_list)
     cs, cl, cw = _compose_chain(w, taps_list)
-    tr0, trn = _tile_windows(rs, rl)
-    tc0, tcn = _tile_windows(cs, cl)
-    return StackTables((h, w, taps_list), rs, rl, rw, cs, cl, cw,
-                       tr0, trn, tc0, tcn)
+    radius = np.cumsum([(len(t) - 1) // 2 for t in taps_list]).astype(
+        np.int32)
+    return StackTables((h, w, taps_list), rs, rl, rw, cs, cl, cw, radius,
+                       *_interior(rs, rl, rw, radius),
+                       *_interior(cs, cl, cw, radius))
 
 
 def dense(start, length, weights) -> np.ndarray:
@@ -247,30 +275,315 @@ def banded_stack_plain(x, tabs: StackTables):
     return torch.matmul(torch.matmul(mhs, x), mws.transpose(1, 2))
 
 
-def _device_tables(tabs: StackTables, device):
-    def up(name, a):
-        return device_const(("bandedstack", name, tabs.key), device,
-                            lambda: torch.from_numpy(np.ascontiguousarray(a)))
-    # column weights as [P, KC, w]: a warp's 32 output columns read 32
-    # consecutive words
-    return {
-        "row_start": up("row_start", tabs.row_start),
-        "row_len": up("row_len", tabs.row_len),
-        "row_w": up("row_w", tabs.row_w),
-        "col_start": up("col_start", tabs.col_start),
-        "col_len": up("col_len", tabs.col_len),
-        "col_wt": up("col_wt", tabs.col_w.transpose(0, 2, 1)),
-        "tile_r0": up("tile_r0", tabs.tile_r0),
-        "tile_rn": up("tile_rn", tabs.tile_rn),
-        "tile_c0": up("tile_c0", tabs.tile_c0),
-        "tile_cn": up("tile_cn", tabs.tile_cn),
-    }
+# K5's kernel (csrc/bandedstack.cu) and its launch plan
+K5_THREADS = 256
+K5_BLOCKS = 4                  # resident blocks an SM the plan aims to fill
+K5_HALF_WIDTHS = (4, 9, 15, 23, 33)   # its instantiations: SIFT's chain
+K5_OFFSETS = {4: 0, 9: 9, 15: 28, 23: 59, 33: 106}   # in its weight arrays
+K5_NW = 173                    # floats of each weight array
+K5_ROWS = 16                   # output rows of a row group (a thread's)
+K5_COLS = 8                    # output columns of a column group
+# (tile rows, t1 columns at most), tried largest first
+K5_TILES = ((32, 256), (16, 224), (16, 160))
+
+
+def _round32(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+def _groups(start, length, weights, lo: int, hi: int, r: int, n: int,
+            R: int):
+    """The groups of R consecutive outputs along one axis of one scale of
+    half-width r: each group's window start, and for each edge group (one
+    with an output outside the interior [lo, hi)) the dense [R + 2r, R]
+    block of its outputs' weights over the window, 0 past each output's
+    span and for outputs past n. An interior group's window starts at its
+    first output less r. Raises ValueError where a window would leave
+    [0, n) or miss a span."""
+    L = R + 2 * r
+    if n < L:
+        raise ValueError(f"banded_stack: {n} outputs are fewer than a "
+                         f"group's window of {L}")
+    G = -(-n // R)
+    ws = np.empty(G, np.int32)
+    blocks = {}
+    for g in range(G):
+        y0 = g * R
+        if y0 >= lo and y0 + R <= hi:
+            ws[g] = y0 - r
+            continue
+        s = min(max(y0 - r, 0), n - L)
+        ws[g] = s
+        d = np.zeros((L, R), np.float32)
+        for i in range(min(R, n - y0)):
+            a, m = int(start[y0 + i]), int(length[y0 + i])
+            if a < s or a + m > s + L:
+                raise ValueError(f"banded_stack: output {y0 + i}'s span "
+                                 f"[{a}, {a + m}) leaves its group's "
+                                 f"window [{s}, {s + L})")
+            d[a - s:a - s + m, i] = weights[y0 + i, :m]
+        blocks[g] = d
+    return ws, blocks
+
+
+@dataclasses.dataclass(frozen=True)
+class StackPlan:
+    """How the K5 kernel cuts one octave stack. A work item is one scale
+    and one tile of `th` output rows by `tw[s]` output columns; items go
+    scale by scale, the widest first (`order`: the scale of each slot s).
+    An item's row pass computes `cw[s]` t1 columns from its tile column's
+    first input column (`tx_t0`), a row group (16 output rows) a thread;
+    its column pass a column group (8 output columns) a thread. An
+    interior group takes its scale's vector (`wr`, `wc`: the kernel's
+    parameters, at K5_OFFSETS of its half-width); an edge group a dense
+    block of weights (`d_row` [16 + 2r, 16], `d_col` [8 + 2r, 8]) that
+    the item stages in shared memory: the row blocks of its row groups
+    and the column blocks of its tile column in `tx_slots`' slots."""
+    th: int                  # output rows a tile (16 or 32)
+    cmax: int                # t1 columns an item computes at most
+    pitch: int               # floats a t1 row (cmax + 1: rows a bank apart)
+    order: tuple             # scale of each slot
+    rh: tuple                # half-width of each slot's scale
+    tw: tuple                # output columns a tile (a multiple of 32)
+    cw: tuple                # t1 columns an item computes (<= cmax)
+    ntx: tuple               # tiles across
+    nty: int                 # tiles down
+    item0: tuple             # first item of each slot, then the item count
+    rg0: tuple               # offset of each slot's row groups
+    cg0: tuple               # offset of each slot's column groups
+    tx0: tuple               # offset of each slot's tile columns
+    rg_ws: np.ndarray        # int32 window start row of each row group
+    rg_e: np.ndarray         # int32 its block's offset in d_row, -1 interior
+    cg_ws: np.ndarray        # int32 window start column of a column group
+    cg_e: np.ndarray         # int32 its block's offset in d_col, -1 interior
+    cg_slot: np.ndarray      # int32 its slot in its tile column, -1 interior
+    tx_t0: np.ndarray        # int32 first t1 column of each tile column
+    tx_slots: np.ndarray     # [tile columns, nslot] int32 d_col offsets
+    d_row: np.ndarray        # float32 edge row blocks
+    d_col: np.ndarray        # float32 edge column blocks
+    rslot: int               # floats of a row block slot in shared memory
+    cslot: int               # floats of a column block slot
+    nslot: int               # column block slots
+    wr: np.ndarray           # [K5_NW] float32 interior row vectors
+    wc: np.ndarray           # [K5_NW] float32 interior column vectors
+    smem: int                # bytes of dynamic shared memory a block
+    blocks_per_sm: int       # by shared memory and threads (the card's
+                             # count, registers too: bandedstack_occupancy)
+
+    @property
+    def n_items(self) -> int:
+        return self.item0[-1]
+
+
+def _tile_widths(radius, cmax: int, w: int):
+    """Each scale's tile width under `cmax` t1 columns: the widest multiple
+    of 32 whose row pass (tw + 2r, rounded up to 32) fits, no wider than
+    the image rounded up; None where a scale fits no 32."""
+    tws = []
+    for r in radius:
+        tw = 32 * ((cmax - 2 * r) // 32)
+        if tw < 32:
+            return None
+        tws.append(min(tw, _round32(w)))
+    return tws
+
+
+def stack_plan(tabs: StackTables, slots: int | None = None,
+               tiles=None) -> StackPlan:
+    """K5's launch plan for `tabs`: the tiles of the first (tile rows, t1
+    columns) of K5_TILES whose items number at least `slots` (the card's
+    resident blocks; None takes the first that fits), else of the last
+    that fits; `tiles` = (tile rows, each scale's tile width) forces a
+    cut (a multiple of 32 wide; scripts/torch_k5_k1_sweep.py). Raises
+    ValueError where the kernel cannot take the stack: a scale's
+    half-width outside K5_HALF_WIDTHS or repeated, or an image smaller
+    than a group's window."""
+    h, w = tabs.shape
+    P = tabs.scales
+    radius = [int(r) for r in tabs.radius]
+    if (P > len(K5_HALF_WIDTHS) or len(set(radius)) != P
+            or any(r not in K5_HALF_WIDTHS for r in radius)):
+        raise ValueError(f"banded_stack: the kernel takes distinct "
+                         f"half-widths of {K5_HALF_WIDTHS}, not {radius}")
+    order = sorted(range(P), key=lambda p: -radius[p])
+    rs = [radius[p] for p in order]
+    if tiles is None:
+        for th, cmax in K5_TILES:
+            tws = _tile_widths(rs, cmax, w)
+            if tws is None:
+                continue
+            tiles = (th, tws)
+            items = -(-h // th) * sum(-(-w // tw) for tw in tws)
+            if slots is None or items >= slots:
+                break
+        if tiles is None:
+            raise ValueError(f"banded_stack: no tile takes half-widths {rs}")
+    th, tws = tiles[0], list(tiles[1])
+    if th not in (16, 32) or any(tw % 32 or tw < 32 for tw in tws):
+        raise ValueError(f"banded_stack: tiles {tiles}")
+    nty = -(-h // th)
+    item0, rg0, cg0, tx0 = [0], [], [], []
+    rg_ws, rg_e, cg_ws, cg_e, cg_slot, tx_t0, lists = ([] for _ in range(7))
+    d_row, d_col = [], []
+    n_row = n_col = 0
+    for s, p in enumerate(order):
+        r, tw = rs[s], tws[s]
+        ntx = -(-w // tw)
+        item0.append(item0[-1] + nty * ntx)
+        rg0.append(sum(a.size for a in rg_ws))
+        cg0.append(sum(a.size for a in cg_ws))
+        tx0.append(len(tx_t0))
+        ws, blocks = _groups(tabs.row_start[p], tabs.row_len[p],
+                             tabs.row_w[p], int(tabs.row_lo[p]),
+                             int(tabs.row_hi[p]), r, h, K5_ROWS)
+        e = np.full(ws.size, -1, np.int32)
+        for g, d in blocks.items():
+            e[g] = n_row
+            d_row.append(d.ravel())
+            n_row += d.size
+        rg_ws.append(ws)
+        rg_e.append(e)
+        ws, blocks = _groups(tabs.col_start[p], tabs.col_len[p],
+                             tabs.col_w[p], int(tabs.col_lo[p]),
+                             int(tabs.col_hi[p]), r, w, K5_COLS)
+        e = np.full(ws.size, -1, np.int32)
+        slot = np.full(ws.size, -1, np.int32)
+        for g, d in blocks.items():
+            e[g] = n_col
+            d_col.append(d.ravel())
+            n_col += d.size
+        gpt = tw // K5_COLS
+        cw = _round32(tw + 2 * r)
+        for tx in range(ntx):
+            gs = np.arange(tx * gpt, min((tx + 1) * gpt, ws.size))
+            t0 = int(ws[gs].min())
+            if int(ws[gs].max()) + K5_COLS + 2 * r - t0 > cw:
+                raise ValueError(f"banded_stack: tile column {tx} of "
+                                 f"half-width {r} needs more than {cw} "
+                                 "t1 columns")
+            edge = gs[e[gs] >= 0]
+            slot[edge] = np.arange(edge.size)
+            lists.append(e[edge])
+            tx_t0.append(t0)
+        cg_ws.append(ws)
+        cg_e.append(e)
+        cg_slot.append(slot)
+    nslot = max(len(a) for a in lists)
+    if max(tws) > 256 or nslot > 32:
+        raise ValueError(f"banded_stack: tiles {tws} wider than 256 or "
+                         f"{nslot} edge column groups in one")
+    tx_slots = np.full((len(lists), max(nslot, 1)), -1, np.int32)
+    for i, a in enumerate(lists):
+        tx_slots[i, :len(a)] = a
+    rslot = max(K5_ROWS + 2 * r for r in rs) * K5_ROWS
+    cslot = max(K5_COLS + 2 * r for r in rs) * K5_COLS
+    cws = [_round32(tw + 2 * r) for tw, r in zip(tws, rs)]
+    cmax = max(cws)
+    pitch = cmax + 1
+    smem = 4 * (th * pitch + th // K5_ROWS * rslot + nslot * cslot)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"banded_stack: {smem} bytes of shared memory a "
+                         "block")
+    wr = np.zeros(K5_NW, np.float32)
+    wc = np.zeros(K5_NW, np.float32)
+    for p, r in enumerate(radius):
+        o = K5_OFFSETS[r]
+        wr[o:o + 2 * r + 1] = tabs.row_iw[p, :2 * r + 1]
+        wc[o:o + 2 * r + 1] = tabs.col_iw[p, :2 * r + 1]
+    cat = np.concatenate
+    return StackPlan(
+        th, cmax, pitch, tuple(order), tuple(rs), tuple(tws), tuple(cws),
+        tuple(-(-w // tw) for tw in tws), nty, tuple(item0), tuple(rg0),
+        tuple(cg0), tuple(tx0), cat(rg_ws), cat(rg_e), cat(cg_ws),
+        cat(cg_e), cat(cg_slot), np.asarray(tx_t0, np.int32), tx_slots,
+        cat(d_row), cat(d_col), rslot, cslot, nslot, wr, wc, smem,
+        min(SM_THREADS // K5_THREADS,
+            SM_SMEM // (smem + SM_BLOCK_RESERVED)))
+
+
+def stack_plan_on_device(plan: StackPlan, device):
+    """(plan, its tables on `device`, the kernel's resident blocks an SM
+    there, the device's SM count): what `launch_stack` takes."""
+    d = {name: torch.from_numpy(np.ascontiguousarray(getattr(plan, name)))
+         .to(device)
+         for name in ("rg_ws", "rg_e", "cg_ws", "cg_slot", "tx_t0",
+                      "tx_slots", "d_row", "d_col")}
+    fn = _build.load("bandedstack").bandedstack_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int]
+    with torch.cuda.device(device):
+        occ = fn(plan.smem)
+    if occ < 1:
+        raise RuntimeError(f"banded_stack: the kernel fits no block with "
+                           f"{plan.smem} bytes of shared memory (occupancy "
+                           f"{occ})")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return plan, d, occ, sms
+
+
+_STACK_PLANS: dict = {}
+
+
+def _stack_on(tabs: StackTables, device):
+    """stack_plan_on_device(stack_plan(tabs, K5_BLOCKS x the SM count),
+    device), made on first use."""
+    device = torch.device(device)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    key = (tabs.key, index)
+    if key not in _STACK_PLANS:
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        _STACK_PLANS[key] = stack_plan_on_device(
+            stack_plan(tabs, K5_BLOCKS * sms), device)
+    return _STACK_PLANS[key]
+
+
+def _stack_desc(plan: StackPlan) -> np.ndarray:
+    """The kernel's integer parameters (csrc/bandedstack.cu `Params`):
+    the item count, tile rows, pitch, slots and slot sizes, then per slot
+    (five; unused ones start at the item count) its scale, half-width,
+    tile width, t1 columns, tiles across, first item and table offsets."""
+    n = len(K5_HALF_WIDTHS)
+    head = [plan.n_items, plan.th, plan.pitch, plan.nslot, plan.rslot,
+            plan.cslot, len(plan.order)]
+    per = []
+    for s in range(n):
+        if s < len(plan.order):
+            per.append([plan.order[s], plan.rh[s], plan.tw[s], plan.cw[s],
+                        plan.ntx[s], plan.item0[s], plan.rg0[s],
+                        plan.cg0[s], plan.tx0[s]])
+        else:
+            per.append([0, 0, 32, 32, 1, plan.n_items, 0, 0, 0])
+    return np.asarray(head + [v for row in per for v in row], np.int32)
+
+
+def launch_stack(x, out, on_device):
+    """Launch the kernel on x [h, w] into out [P, h, w] (both contiguous
+    float32 on the card) under `on_device` (stack_plan_on_device's
+    tuple). Counts no launch: `banded_stack` is the wrapper."""
+    plan, d, occ, sms = on_device
+    h, w = x.shape
+    desc = _stack_desc(plan)
+    fn = _build.load("bandedstack").bandedstack_launch
+    fn.restype = ctypes.c_int
+    V, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [V, V, I, I, V, V, V] + [V] * 8 + [I, I, V]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), out.data_ptr(), h, w, desc.ctypes.data,
+                 plan.wr.ctypes.data, plan.wc.ctypes.data,
+                 *(d[k].data_ptr() for k in (
+                     "rg_ws", "rg_e", "cg_ws", "cg_slot", "tx_t0",
+                     "tx_slots", "d_row", "d_col")),
+                 plan.smem, min(plan.n_items, occ * sms), stream)
+    _build.check(err, "bandedstack")
 
 
 def banded_stack(x, tabs: StackTables):
     """x: [h, w] float32. Returns [P, h, w] float32, out[p] = mhs[p] @ x @
     mws[p]^T for the operators of `tabs`. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    version; CUDA tensors launch the kernel (stack_plan raises on a chain
+    it cannot take)."""
     if x.device.type == "cpu":
         return banded_stack_plain(x, tabs)
     if x.device.type != "cuda":
@@ -279,27 +592,9 @@ def banded_stack(x, tabs: StackTables):
         raise ValueError(f"banded_stack: x must be float32 {tabs.shape}")
     x = x.contiguous()
     h, w = tabs.shape
-    P = tabs.scales
-    d = _device_tables(tabs, x.device)
-    out = torch.empty((P, h, w), dtype=torch.float32, device=x.device)
-    lib = _build.load("bandedstack")
-    fn = lib.bandedstack_launch
-    fn.restype = ctypes.c_int
-    V, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [V, I, I, I, V, V, V, I, V, V, V, I, V, V, V, V, I, I, V,
-                   V]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), h, w, P,
-                 d["row_start"].data_ptr(), d["row_len"].data_ptr(),
-                 d["row_w"].data_ptr(), tabs.row_w.shape[2],
-                 d["col_start"].data_ptr(), d["col_len"].data_ptr(),
-                 d["col_wt"].data_ptr(), tabs.col_w.shape[2],
-                 d["tile_r0"].data_ptr(), d["tile_rn"].data_ptr(),
-                 d["tile_c0"].data_ptr(), d["tile_cn"].data_ptr(),
-                 int(tabs.tile_rn.max()), int(tabs.tile_cn.max()),
-                 out.data_ptr(), stream)
-    _build.check(err, "bandedstack")
+    out = torch.empty((tabs.scales, h, w), dtype=torch.float32,
+                      device=x.device)
+    launch_stack(x, out, _stack_on(tabs, x.device))
     banded_stack.launches += 1
     return out
 
@@ -398,13 +693,7 @@ def banded_sandwich_plain(x, tabs: SandwichTables):
     return _span_apply(t, -2, d["col_taps"], d["col_w"])
 
 
-# The kernel's launch plan. Hopper: 228 KB of shared memory an SM, of which
-# a block may use 227 KB and the runtime reserves 1 KB a block; 2048
-# threads an SM.
-SMEM_LIMIT = 232448
-SM_SMEM = 233472
-SM_BLOCK_RESERVED = 1024
-SM_THREADS = 2048
+# The K8 kernel's launch plan (Hopper's limits are at the top).
 K8_THREADS = 256                 # csrc/bandedsandwich.cu THREADS
 K8_BLOCKS = 4                    # resident blocks an SM the plan keeps
 # csrc/bandedsandwich.cu's instantiations, (C, tap bound): the tile

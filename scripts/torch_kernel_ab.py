@@ -1,13 +1,19 @@
-"""K6 and K8 from one checkout of the port, for kernel A/B runs.
+"""K1, K5, K6 and K8 from one checkout of the port, for kernel A/B runs.
 
     python3 scripts/torch_kernel_ab.py ROOT [ROOT ...]
 
 For each ROOT (a checkout of this repository, say the parent commit
 unpacked with `git archive` beside the working tree), in a fresh process
 of its own, imports that checkout's `pislamfusion_tpu_torch`, builds its
-K6 and K8 libraries and times, on the same seeded inputs at the shapes
+kernels and times, on the same seeded inputs at the shapes
 `chip_smoke.py` checks:
 
+- K1 (`flatpyr.build_flat_pyramid`) on a 1080x1920 gray frame, 8 levels
+  (ORB's flat pyramid), held to chip_smoke.py's gate against its plain
+  version;
+- K5 (`stencil.banded_stack` on `sift._stack_tables`) at SIFT's three
+  octave shapes 1080x1920, 540x960 and 270x480 (0..1 inputs, within
+  1e-5 of its plain version);
 - K8 (`stencil.banded_sandwich` on `image.pyr_tables`) at the Map2D
   patch's 1536^2x3 pyrDown and 768^2x3 pyrUp, the 1536^2x1 weight
   pyrDown, the 1664x1152x3 canvas pyrUp of `blended()`, FastVO's
@@ -23,12 +29,12 @@ graph, warm (the inputs in L2 from the call before) and cold (a 128 MB
 write before each call, its own time subtracted; K6's three times, as
 its cold time spreads by some 20 % between graphs): `chip_smoke.graph_ms`
 and `graph_ms_cold` of this script's checkout serve every ROOT. Then,
-where the kernels run among the path's other work, SIFT's FastVO path
-(`chip_smoke.make_fastvo`, detector "sift", 8 frames of bench.py's 1080p
-strip after a warm-up pass) under torch.profiler: K6's and K8's device
-ms a frame, every launch summed. Prints one JSON line a ROOT, in the
-order given: give the roots as A B B A to see the spread beside the
-difference. Needs a CUDA device.
+where the kernels run among the paths' other work, SIFT's and ORB's
+FastVO paths (`chip_smoke.make_fastvo`, 8 frames of bench.py's 1080p
+strip after a warm-up pass) under torch.profiler: the device ms a frame
+of K5, K6 and K8 on SIFT's path and of K1 on ORB's, every launch summed.
+Prints one JSON line a ROOT, in the order given: give the roots as A B B
+A to see the spread beside the difference. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -82,29 +88,36 @@ def sift_grids(dev, seed: int = 7):
     return grad, grids
 
 
-def sift_path_ms(dev, n: int = 8) -> dict:
-    """K6's and K8's device ms a frame on SIFT's FastVO path over n frames
-    of bench.py's 1080p strip, from torch.profiler, after a warm-up
-    pass."""
+# profiler names of each kernel: the parent's K1 was two kernels
+_MARKS = {"flatpyr": ("flatpyr_kernel", "::row_pass(", "::col_pass("),
+          "bandedstack": ("bandedstack_kernel",),
+          "bilineargrid": ("bilineargrid_kernel",),
+          "bandedsandwich": ("bandedsandwich_kernel",)}
+
+
+def path_ms(dev, detector: str, kernels, n: int = 8) -> dict:
+    """The device ms a frame of each of `kernels` on FastVO's path with
+    `detector` over n frames of bench.py's 1080p strip, from
+    torch.profiler, after a warm-up pass."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from chip_smoke import make_fastvo, render_strip
     H, W, fx = 1080, 1920, 1200.0
     frames, poses = render_strip(n, H, W, fx, 0.12, 6144, dev)
     make = lambda: make_fastvo(H, W, fx, poses, 1000, 8, 5, dev,  # noqa
-                               "sift")
+                               detector)
     make().process(frames, poses[0])
     vo = make()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         vo.process(frames, poses[0])
         torch.cuda.synchronize()
-    us = {"bilineargrid": 0.0, "bandedsandwich": 0.0}
+    us = {name: 0.0 for name in kernels}
     for e in prof.events():
         if e.device_type.name != "CUDA":
             continue
         for name in us:
-            if f"{name}_kernel" in e.name:
+            if any(m in e.name for m in _MARKS[name]):
                 us[name] += e.time_range.end - e.time_range.start
     return {name: t / 1e3 / n for name, t in us.items()}
 
@@ -121,12 +134,36 @@ def one(root: str) -> dict:
     from pislamfusion_tpu_torch import _build
     from pislamfusion_tpu_torch.ops import image as im
     from pislamfusion_tpu_torch.ops import stencil
+    from pislamfusion_tpu_torch.ops.features import flatpyr
     from pislamfusion_tpu_torch.ops.features import patchgather as pg
+    from pislamfusion_tpu_torch.ops.features import sift
     _build.build_all()
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     rng = np.random.default_rng(8)
+    gray = torch.from_numpy(rng.uniform(0, 255, (1080, 1920)).astype(
+        np.float32)).to(dev)
+    fn = lambda: flatpyr.build_flat_pyramid(gray, 8, 1.2, 32)  # noqa: E731
+    d = (fn() - flatpyr.build_flat_pyramid_plain(gray, 8, 1.2, 32)).abs()
+    if not (float((d <= 1e-3).double().mean()) >= 0.9999
+            and float(d.max()) <= 1.0):
+        raise AssertionError("K1: kernel disagrees with plain")
+    k1 = {"1080x1920 L=8": {"warm": graph_ms(fn),
+                            "cold": graph_ms_cold(fn, flush)}}
+    sp = sift.SiftParams(n_features=1000)
+    k5 = {}
+    for h, w in ((1080, 1920), (540, 960), (270, 480)):
+        tabs = sift._stack_tables(h, w, sp)
+        x = torch.from_numpy(rng.uniform(0, 1, (h, w)).astype(
+            np.float32)).to(dev)
+        err = float((stencil.banded_stack(x, tabs)
+                     - stencil.banded_stack_plain(x, tabs)).abs().max())
+        if not err <= 1e-5:
+            raise AssertionError(f"K5 {h}x{w}: |kernel - plain| {err}")
+        fn = lambda: stencil.banded_stack(x, tabs)  # noqa: E731
+        k5[f"{h}x{w}"] = {"warm": graph_ms(fn),
+                          "cold": graph_ms_cold(fn, flush)}
     k8 = {}
     for label, kind, h, w, oh, ow, C in K8_CASES:
         tabs = im.pyr_tables(kind, h, w, oh, ow)
@@ -163,8 +200,12 @@ def one(root: str) -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    return {"root": root, "card": card, "k8_ms": k8, "k6_ms": k6,
-            "sift_path_ms_per_frame": sift_path_ms(dev)}
+    return {"root": root, "card": card, "k1_ms": k1, "k5_ms": k5,
+            "k8_ms": k8, "k6_ms": k6,
+            "sift_path_ms_per_frame": path_ms(
+                dev, "sift", ("bandedstack", "bilineargrid",
+                              "bandedsandwich")),
+            "orb_path_ms_per_frame": path_ms(dev, "orb", ("flatpyr",))}
 
 
 def main() -> int:

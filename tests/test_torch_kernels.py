@@ -5,7 +5,10 @@ interpreter on the CPU.
 K1 flat pyramid: within 1e-3 of the interpreted kernel over the whole
 packed buffer (both round the source, the matrices and the row-pass
 result to bf16 at the same points; only f32 summation order differs) and
-within 2 gray of the exact f64 product (the cost of those bf16 roundings).
+within 2 gray of the exact f64 product (the cost of those bf16 roundings);
+its launch plan writes every packed output once, its re-laid span tables
+rebuild the matrices, and the kernel's arithmetic emulated on the plan's
+records meets the card's gate against the plain version, without JAX.
 K2 patch gather: bit-exact. K3 shear warp: equal tile liveness, dead
 tiles exactly zero, within 5e-3 gray on live pixels whose source point is
 >= 2 px inside the image (the kernel's "high" bf16 hi/lo split keeps ~16
@@ -14,7 +17,11 @@ K5 banded stack: within 2e-5 on a 0..1 image (both f32; the kernel's
 dense 128-row tiles and the port's products sum in other orders), its
 composed matrices within 1 f32 ulp of sift._stack_matrices (both cast the
 same float64 products, summed in other orders), and the reference's
-fusability verdict at every octave size of a 1080p frame. K6 bilinear
+fusability verdict at every octave size of a 1080p frame; each scale's
+recorded interior and vector reproduce its spans bit for bit, the launch
+plan covers every (scale, output) once with windows and edge blocks that
+hold every span, and the kernel's arithmetic emulated on the plan is
+within 2e-5 of the plain version, without JAX. K6 bilinear
 grid: within 1e-4 on +-128 samples (the same f32 function, the
 interpreter's one-hot products summing in another order).
 K8 banded sandwich: within 2e-5 of the output's largest magnitude (about
@@ -109,6 +116,125 @@ def test_flatpyr_wrapper_refuses_other_devices():
     img = torch.empty((H1, W1), device="meta")
     with pytest.raises(ValueError):
         tfp.build_flat_pyramid(img, L1, 1.2, 32)
+
+
+def _emulate_flatpyr(img, kp, plan):
+    """The K1 kernel's arithmetic, item by item from the records it reads,
+    in numpy: each level item stages its bf16-rounded source window, runs
+    the row pass through its row table into a bf16 t1 tile and the column
+    pass through its column table; level-0 items copy the edge pad.
+    Returns the packed buffer and how often each entry was written."""
+    h, w = img.shape
+    bf = lambda a: tfp._bf16(a.astype(np.float32))  # noqa: E731
+    out = np.zeros((plan.total_rows, plan.wp), np.float32)
+    hits = np.zeros(out.shape, np.int32)
+    for lvl, rin0, rn, rmo, cin0, pitch, cmo, corner in kp.records:
+        if lvl == 0:
+            rows = np.arange(rin0, rin0 + rn)
+            iy = np.clip(rows - plan.cell, 0, h - 1)
+            ix = np.clip(np.arange(plan.wp) - plan.pad_left, 0, w - 1)
+            out[rows] = img[iy[:, None], ix[None, :]]
+            hits[rows] += 1
+            continue
+        tr, tc = kp.tiles[lvl - 1]
+        K = kp.taps[lvl - 1]
+        r0, c0 = corner >> 16, corner & 0xffff
+        nr = min(tr, plan.block_rows[lvl] - r0)
+        nc = min(tc, plan.wp - c0) if pitch else cin0
+        base = plan.bases[lvl] + r0
+        if pitch:
+            src = np.zeros((rn, pitch), np.float32)
+            cols = np.arange(cin0, min(cin0 + pitch, w))
+            src[:, :cols.size] = bf(img[rin0:rin0 + rn, cols])
+            rm = kp.rmeta[rmo:rmo + (2 + K) * tr]
+            cm = kp.cmeta[cmo:cmo + (2 + K) * tc]
+            rw = rm[2 * tr:].view(np.float32).reshape(K, tr)
+            cw = cm[2 * tc:].view(np.float32).reshape(K, tc)
+            t1 = np.zeros((tr, pitch), np.float32)
+            for r in range(nr):
+                for k in range(rm[tr + r]):
+                    t1[r] += rw[k, r] * src[rm[r] + k]
+            t1 = bf(t1)
+            for c in range(nc):
+                acc = np.zeros(nr, np.float32)
+                for k in range(cm[tc + c]):
+                    acc += t1[:nr, cm[c] + k] * cw[k, c]
+                out[base:base + nr, c0 + c] = acc
+        hits[base:base + nr, c0:c0 + nc] += 1
+    return out, hits
+
+
+@pytest.mark.parametrize("h, w, levels", [(600, 640, 4), (1080, 1920, 8)])
+def test_flatpyr_plan_tiles_every_output_once(h, w, levels):
+    """K1's launch plan: its items write every packed row and column
+    exactly once, each level's tiles stay within its block, every tile's
+    shared memory keeps K1_BLOCKS blocks an SM, and its re-laid span tables,
+    densified, rebuild flat_tables(...).mats16."""
+    kp = tfp.kernel_plan(h, w, levels, 1.2, 32)
+    t = tfp.flat_tables(h, w, levels, 1.2, 32)
+    plan = t.plan
+    assert kp.smem <= tfp.K1_SMEM and kp.blocks_per_sm >= tfp.K1_BLOCKS
+    hits = np.zeros((plan.total_rows, plan.wp), np.int32)
+    mats = [(np.zeros_like(mr), np.zeros_like(mc)) for mr, mc in t.mats16]
+    levels = {}          # trow / tcol index -> level
+    for lvl, a, b, cols in kp.items:
+        if lvl == 0:
+            hits[a:a + b] += 1
+            continue
+        tr, tc = kp.tiles[lvl - 1]
+        r0, c0 = kp.trow[a, 3], kp.tcol[b, 3]
+        base = plan.bases[lvl] + r0
+        nr = min(tr, plan.block_rows[lvl] - r0)
+        hits[base:base + nr, c0:c0 + cols] += 1
+        levels[("r", a)] = levels[("c", b)] = lvl
+    for (axis, i), lvl in levels.items():
+        tr, tc = kp.tiles[lvl - 1]
+        K = kp.taps[lvl - 1]
+        tile, table, meta = ((tr, kp.trow, kp.rmeta) if axis == "r"
+                             else (tc, kp.tcol, kp.cmeta))
+        first, count, mo, o0 = table[i]
+        m = meta[mo:mo + (2 + K) * tile]
+        n_out = (plan.block_rows[lvl] if axis == "r" else plan.wp) - o0
+        idx = np.arange(min(tile, n_out))
+        off, n = m[idx], m[tile + idx]
+        assert (n == 0).all() if count == 0 else (
+            (off >= 0) & (off + n <= count)).all()
+        if axis == "c":
+            assert first % 4 == 0 and count % 4 == 0
+        wts = m[2 * tile:].view(np.float32).reshape(K, tile)[:, idx]
+        dst = mats[lvl - 1][0 if axis == "r" else 1]
+        k = np.arange(K)[:, None]
+        live = k < n[None, :]
+        rows = np.broadcast_to(o0 + idx[None, :], live.shape)[live]
+        cols = (first + off[None, :] + k)[live]
+        dst[rows, cols] = wts[live]
+    np.testing.assert_array_equal(hits, 1)
+    for (gr, gc), (mr, mc) in zip(mats, t.mats16):
+        np.testing.assert_array_equal(gr, mr)
+        np.testing.assert_array_equal(gc, mc)
+
+
+def test_flatpyr_plan_computes_the_plain_version():
+    """The K1 kernel's arithmetic on its plan (emulated in numpy, item by
+    item) against the plain version: the same bf16 roundings, f32 sums in
+    another order."""
+    rng = np.random.default_rng(10)
+    img = rng.uniform(0, 255, (H1, W1)).astype(np.float32)
+    kp = tfp.kernel_plan(H1, W1, L1, 1.2, 32)
+    plan = tfp.flat_tables(H1, W1, L1, 1.2, 32).plan
+    got, hits = _emulate_flatpyr(img, kp, plan)
+    ref = tfp.build_flat_pyramid_plain(torch.from_numpy(img), L1, 1.2,
+                                       32).numpy()
+    np.testing.assert_array_equal(hits, 1)
+    d = np.abs(got - ref)
+    assert (d <= 1e-3).mean() >= 0.9999 and d.max() <= 1.0
+
+
+def test_flatpyr_plan_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError):          # level 5's window fits no tile
+        tfp.kernel_plan(1080, 1920, 8, 1.5, 32)
+    with pytest.raises(ValueError):          # more levels than the kernel's
+        tfp.kernel_plan(600, 640, 17, 1.05, 32)
 
 
 @pytest.mark.parametrize("channels", [1, 2])
@@ -256,6 +382,184 @@ def test_bandedstack_wrapper_refuses_other_devices():
     tabs = tsift._stack_tables(HS, WS, tsift.SiftParams())
     with pytest.raises(ValueError):
         tst.banded_stack(torch.empty((HS, WS), device="meta"), tabs)
+
+
+_OCTAVES = [(1080, 1920), (540, 960), (270, 480), (HS, WS)]
+
+
+@pytest.mark.parametrize("h, w", _OCTAVES)
+def test_bandedstack_interior_reproduces_the_spans(h, w):
+    """Each scale's recorded interior [lo, hi) and vector: every output
+    there has start y - r, length 2r + 1 and the vector's weights, bit for
+    bit, and the interior is [r, n - r) for the default chain."""
+    tabs = tsift._stack_tables(h, w, tsift.SiftParams())
+    assert list(tabs.radius) == [4, 9, 15, 23, 33]
+    for start, length, wts, lo, hi, iw, n in (
+            (tabs.row_start, tabs.row_len, tabs.row_w, tabs.row_lo,
+             tabs.row_hi, tabs.row_iw, h),
+            (tabs.col_start, tabs.col_len, tabs.col_w, tabs.col_lo,
+             tabs.col_hi, tabs.col_iw, w)):
+        for p, r in enumerate(tabs.radius):
+            assert (lo[p], hi[p]) == (r, n - r)
+            ys = np.arange(lo[p], hi[p])
+            np.testing.assert_array_equal(start[p, ys], ys - r)
+            np.testing.assert_array_equal(length[p, ys], 2 * r + 1)
+            np.testing.assert_array_equal(
+                wts[p, ys].view(np.int32),
+                np.broadcast_to(iw[p].view(np.int32), wts[p, ys].shape))
+            assert (iw[p, 2 * r + 1:] == 0).all()
+
+
+def _stack_items(plan):
+    """(slot, scale, tile row, tile column) of each of the plan's items."""
+    for item in range(plan.n_items):
+        s = max(i for i in range(len(plan.order)) if plan.item0[i] <= item)
+        ty, tx = divmod(item - plan.item0[s], plan.ntx[s])
+        yield s, plan.order[s], ty, tx
+
+
+def _toeplitz(vec, r: int, R: int):
+    """The [R + 2r, R] block of an interior group: column i holds the
+    vector from row i."""
+    d = np.zeros((R + 2 * r, R), np.float32)
+    for i in range(R):
+        d[i:i + 2 * r + 1, i] = vec[:2 * r + 1]
+    return d
+
+
+def _emulate_stack(x, tabs, plan):
+    """The K5 kernel's arithmetic, item by item, in numpy (float64 sums):
+    each row group from its window's block (the scale's vector shifted,
+    or its staged edge block), each column group likewise from t1.
+    Returns the [P, h, w] output and how often each entry was written."""
+    h, w = x.shape
+    out = np.zeros((tabs.scales, h, w))
+    hits = np.zeros(out.shape, np.int32)
+    nrg = plan.th // tst.K5_ROWS
+    for s, p, ty, tx in _stack_items(plan):
+        r, tw, cw = plan.rh[s], plan.tw[s], plan.cw[s]
+        o = tst.K5_OFFSETS[r]
+        lr, lc = tst.K5_ROWS + 2 * r, tst.K5_COLS + 2 * r
+        tile = plan.tx0[s] + tx
+        t0 = plan.tx_t0[tile]
+        cols = np.minimum(t0 + np.arange(cw), w - 1)
+        t1 = np.zeros((plan.th, cw))
+        for k in range(nrg):
+            g = ty * nrg + k
+            if g * tst.K5_ROWS >= h:
+                continue
+            ws, e = plan.rg_ws[plan.rg0[s] + g], plan.rg_e[plan.rg0[s] + g]
+            d = (_toeplitz(plan.wr[o:], r, tst.K5_ROWS) if e < 0 else
+                 plan.d_row[e:e + lr * tst.K5_ROWS].reshape(lr, -1))
+            t1[k * 16:(k + 1) * 16] = d.T.astype(np.float64) @ x[
+                ws:ws + lr][:, cols]
+        for gl in range(tw // tst.K5_COLS):
+            xo = tx * tw + gl * tst.K5_COLS
+            if xo >= w:
+                continue
+            g = plan.cg0[s] + tx * (tw // tst.K5_COLS) + gl
+            ws, sl = plan.cg_ws[g], plan.cg_slot[g]
+            d = (_toeplitz(plan.wc[o:], r, tst.K5_COLS) if sl < 0 else
+                 plan.d_col[plan.tx_slots[tile, sl]:][:lc * tst.K5_COLS]
+                 .reshape(lc, -1))
+            res = t1[:, ws - t0:ws - t0 + lc] @ d.astype(np.float64)
+            y0 = ty * plan.th
+            ny, nx = min(plan.th, h - y0), min(tst.K5_COLS, w - xo)
+            out[p, y0:y0 + ny, xo:xo + nx] = res[:ny, :nx]
+            hits[p, y0:y0 + ny, xo:xo + nx] += 1
+    return out, hits
+
+
+@pytest.mark.parametrize("h, w", _OCTAVES)
+def test_bandedstack_plan_covers_every_output_once(h, w):
+    """K5's launch plan at each octave shape: items cover every (scale,
+    output) exactly once, the widest scale first; every group's window
+    stays in the image and inside its tile column's t1 columns, and each
+    edge block holds its outputs' spans; the shared memory fits 4 blocks
+    an SM, and enough items fill 4 blocks on each of 132 SMs."""
+    tabs = tsift._stack_tables(h, w, tsift.SiftParams())
+    plan = tst.stack_plan(tabs, tst.K5_BLOCKS * 132)
+    assert plan.rh == tuple(sorted(plan.rh, reverse=True))
+    assert plan.n_items >= tst.K5_BLOCKS * 132 or plan.th == 16
+    assert plan.blocks_per_sm >= tst.K5_BLOCKS
+    assert plan.pitch % 32 == 1 and max(plan.cw) <= plan.cmax
+    hits = np.zeros((tabs.scales, h, w), np.int32)
+    for s, p, ty, tx in _stack_items(plan):
+        y0, x0 = ty * plan.th, tx * plan.tw[s]
+        hits[p, y0:y0 + plan.th, x0:x0 + plan.tw[s]] += 1
+    np.testing.assert_array_equal(hits, 1)
+    for s, p in enumerate(plan.order):
+        r = plan.rh[s]
+        for (start, length, wts, n, R, ws, e, blocks) in (
+                (tabs.row_start[p], tabs.row_len[p], tabs.row_w[p], h,
+                 tst.K5_ROWS, plan.rg_ws, plan.rg_e, plan.d_row),
+                (tabs.col_start[p], tabs.col_len[p], tabs.col_w[p], w,
+                 tst.K5_COLS, plan.cg_ws, plan.cg_e, plan.d_col)):
+            g0 = (plan.rg0 if R == tst.K5_ROWS else plan.cg0)[s]
+            L = R + 2 * r
+            for g in range(-(-n // R)):
+                a = ws[g0 + g]
+                assert 0 <= a <= n - L
+                ys = np.arange(g * R, min(g * R + R, n))
+                dense = np.zeros((L, R), np.float32)
+                for i, y in enumerate(ys):
+                    lo = start[y] - a
+                    assert 0 <= lo and lo + length[y] <= L
+                    dense[lo:lo + length[y], i] = wts[y, :length[y]]
+                if e[g0 + g] < 0:
+                    assert a == g * R - r
+                    vec = (plan.wr if R == tst.K5_ROWS else plan.wc)[
+                        tst.K5_OFFSETS[r]:]
+                    np.testing.assert_array_equal(dense,
+                                                  _toeplitz(vec, r, R))
+                else:
+                    np.testing.assert_array_equal(
+                        dense, blocks[e[g0 + g]:e[g0 + g] + L * R]
+                        .reshape(L, R))
+        for tx in range(plan.ntx[s]):
+            tile = plan.tx0[s] + tx
+            gpt = plan.tw[s] // tst.K5_COLS
+            for gl in range(gpt):
+                g = tx * gpt + gl
+                if g * tst.K5_COLS >= w:
+                    continue
+                a = plan.cg_ws[plan.cg0[s] + g] - plan.tx_t0[tile]
+                assert 0 <= a and a + tst.K5_COLS + 2 * r <= plan.cw[s]
+                sl = plan.cg_slot[plan.cg0[s] + g]
+                assert (sl < 0) == (plan.cg_e[plan.cg0[s] + g] < 0)
+                if sl >= 0:
+                    assert plan.tx_slots[tile, sl] == plan.cg_e[
+                        plan.cg0[s] + g]
+
+
+@pytest.mark.parametrize("slots", [None, 10 ** 6])
+def test_bandedstack_plan_computes_the_plain_version(slots):
+    """The K5 kernel's arithmetic on its plan (emulated in numpy, item by
+    item) against the plain version at (HS, WS), under the largest tiles
+    and under the smallest (the plan for many SMs)."""
+    rng = np.random.default_rng(13)
+    img = rng.uniform(0, 1, (HS, WS)).astype(np.float32)
+    tabs = tsift._stack_tables(HS, WS, tsift.SiftParams())
+    plan = tst.stack_plan(tabs, slots)
+    th, cmax = tst.K5_TILES[0 if slots is None else -1]
+    assert plan.th == th and plan.cmax <= cmax
+    got, hits = _emulate_stack(img.astype(np.float64), tabs, plan)
+    np.testing.assert_array_equal(hits, 1)
+    ref = tst.banded_stack_plain(torch.from_numpy(img), tabs).numpy()
+    assert np.abs(got - ref).max() <= 2e-5
+
+
+def test_bandedstack_plan_refuses_what_the_kernel_cannot_take():
+    # half-widths 7, 16, 27, 41 and 59: no instantiation
+    tabs = tsift._stack_tables(HS, 2 * WS, tsift.SiftParams(sigma0=3.0))
+    assert tabs is not None
+    with pytest.raises(ValueError):
+        tst.stack_plan(tabs)
+    # an image narrower than a column group's window of 8 + 66
+    taps = tsift._stack_tables(HS, WS, tsift.SiftParams()).key[2]
+    small = tst.chain_tables(HS, 70, taps)
+    with pytest.raises(ValueError):
+        tst.stack_plan(small)
 
 
 def test_bilineargrid_plain_matches_interpreted_kernel():
