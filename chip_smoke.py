@@ -11,9 +11,14 @@ It builds the port's CUDA kernels from `pislamfusion_tpu_torch/csrc/`
 1. holds each kernel (K1 flat pyramid, K2 patch gather, K3 shear warp, K4
    fused FAST+NMS+select, K5 banded stack, K6 bilinear grid, K7 packed
    pyramid, K8 banded sandwich) against its plain PyTorch version on the
-   card at the shapes of the main paths (K4 on K1's 8-level 1080p
-   pyramid and on K7's 4-level pyramid of the small strip; K3 at
-   FastVO's half resolution and at the Map2D engine's full resolution;
+   card at the shapes of the main paths (K4 on K1's and K7's 8-level
+   1080p pyramids, K7's 4-level pyramid of the small strip and K1's
+   pyramid of a sigma-40 noise frame, each with the share of pixels that
+   pass its pretest, its bound counted for what the strip's pyramid needs
+   at the f32 min/max and add rates measured on the card, and the card's
+   clocks sampled before and after; K3 at FastVO's half resolution and at
+   the Map2D engine's full resolution, each also transposed (the map
+   turned 100 degrees), all four timed beside their bounds;
    K6 on SIFT's orientation and descriptor grids; K8 at the Map2D
    patch's pyrDown and pyrUp, its weight chain, the canvas pyrUp of
    `blended()`, FastVO's half-res pyramid, its 1080p source pyrDown and
@@ -62,12 +67,12 @@ import numpy as np
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
 # dense bf16 / fp32 (non-tensor) operations per second; the fp32 peak
-# counts a fused multiply-add as two operations, so f32 instructions that
-# do one operation each (sub, min, max) run at half of it
+# counts a fused multiply-add as two operations. K4's minima, maxima and
+# subtractions are timed against rates this script measures
+# (scripts/torch_k4_k3_sweep.py f32_rates)
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
 FP32_OPS_PER_S = 67e12
-FP32_SINGLE_OPS_PER_S = FP32_OPS_PER_S / 2
 
 ALT = 120.0          # bench.py: flying height (m)
 STEP_M = 4.0         # bench.py: straight strip, 4 m per frame
@@ -280,18 +285,115 @@ def check_flatpyr(gray, params, flush):
                      library)
 
 
-def check_fastselect(cases, params):
+def smi_sample() -> str:
+    """The card's SM clock, power draw and limit and temperature now
+    (`nvidia-smi`), for reading a kernel's time beside its clock."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True, timeout=60).stdout.strip()
+
+
+def noise_gray(H: int, W: int, device, seed: int = 40):
+    """A [H, W] frame of i.i.d. Gaussian noise, sigma 40 around 128,
+    clipped to 0..255 (seeded): K4's worst case, where most pixels pass
+    its pretest."""
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.clip(rng.normal(128.0, 40.0, (H, W)), 0,
+                                    255).astype(np.float32)).to(device)
+
+
+def k4_cases(frame, params, device):
+    """K4's four cases, (label, packed, offs, shapes): the K1 (flat) and K7
+    (packed) pyramids of `frame` (bench.py's 1080p strip), K7's pyramid
+    of the small strip's frame 0 (600x640, 4 levels), and the K1 pyramid
+    of `noise_gray` at the frame's size."""
+    import torch
+    from pislamfusion_tpu_torch.ops import image as im
+    from pislamfusion_tpu_torch.ops.features import flatpyr, orb, packedpyr
+    H, W = frame.shape[:2]
+    L, sf, cell = params.n_levels, params.scale_factor, params.cell
+    r = orb._GATHER_R
+    gray = im.rgb_to_gray(frame.to(torch.float32))
+    plan = orb._flat_plan(H, W, L, sf, cell)
+    offs = [(plan.pad_left, b + cell) for b in plan.bases]
+    plan7 = packedpyr.pyramid_plan(H, W, L, sf, r)
+    fr_s, _ = render_strip(1, 600, 640, 600.0, 0.24, 1024, device)
+    p_s = orb.OrbParams(n_features=256, n_levels=4)
+    plan_s = packedpyr.pyramid_plan(600, 640, 4, p_s.scale_factor, r)
+    return [
+        (f"{H}p K1 pyramid", flatpyr.build_flat_pyramid(gray, L, sf, cell),
+         offs, plan.shapes),
+        (f"{H}p K7 pyramid", packedpyr.build_packed_pyramid(gray, L, sf, r),
+         [(r, b + r) for b in plan7.bases], plan7.shapes),
+        ("600x640 K7 pyramid", packedpyr.build_packed_pyramid(
+            im.rgb_to_gray(fr_s[0].to(torch.float32)), 4, p_s.scale_factor,
+            r), [(r, b + r) for b in plan_s.bases], plan_s.shapes),
+        (f"{H}p noise (sigma 40) K1 pyramid", flatpyr.build_flat_pyramid(
+            noise_gray(H, W, device), L, sf, cell), offs, plan.shapes)]
+
+
+# K4's operations a pixel (csrc/fastselect.cu): the pretest (8 minima and
+# maxima a polarity less the shared ones: 14; 2 subtractions, 2
+# comparisons), the full score (16 subtractions, 64 3-tap minima and
+# maxima, 96 for the arcs, 1 to finish; 1 comparison with the threshold),
+# NMS (8 maxima, 1 comparison) and the cell reduction (2 comparisons)
+K4_PRETEST = {"alu": 16, "fma": 2}
+K4_SCORE = {"alu": 162, "fma": 16}
+K4_NMS = {"alu": 9, "fma": 0}
+K4_CELL = {"alu": 2, "fma": 0}
+
+
+def k4_work(packed, offs, shapes, params):
+    """What K4's function needs on these inputs, counted with the plain
+    version's pieces: per level the pixels scored (inside the border), the
+    candidates (pixels that pass the pretest), the pixels whose score is
+    above the threshold and the NMS survivors. Returns the counts and the
+    ALU (minima, maxima, comparisons) and FMA-pipe (subtractions)
+    operations: the pretest for every scored pixel, the full score for
+    each candidate, NMS for each pixel above the threshold, the cell
+    reduction for each survivor; and the dense count (the full score for
+    every scored pixel, NMS and the reduction for every pixel)."""
+    from pislamfusion_tpu_torch.ops.features import fastselect as fs
+    from pislamfusion_tpu_torch.ops.features import orb
+    thr, border = params.min_threshold, orb.EDGE_THRESHOLD
+    n = dict(px=0, scored=0, cand=0, above=0, survivors=0)
+    for (lh, lw), (ox, oy) in zip(shapes, offs):
+        v = packed[oy:oy + lh, ox:ox + lw]
+        s = fs.fast_score_map(v)
+        n["px"] += lh * lw
+        n["scored"] += max(lh - 2 * border, 0) * max(lw - 2 * border, 0)
+        n["cand"] += int(fs.fast_pretest(v, thr, border).sum())
+        n["above"] += int((s[border:lh - border, border:lw - border]
+                           > thr).sum())
+        n["survivors"] += int((fs.suppress(s, thr, border) > 0).sum())
+    ops = {k: n["scored"] * K4_PRETEST[k] + n["cand"] * K4_SCORE[k]
+           + n["above"] * K4_NMS[k] + n["survivors"] * K4_CELL[k]
+           for k in ("alu", "fma")}
+    dense = n["scored"] * sum(K4_SCORE.values()) + n["px"] * (
+        sum(K4_NMS.values()) + sum(K4_CELL.values()))
+    return n, ops, dense
+
+
+def check_fastselect(cases, params, flush, rates):
     """K4 on each (label, packed, offs, shapes) of `cases`: kernel vs plain
-    (equal: 0 differing cells in cv2d and ci2d); timed on the first."""
+    (equal: 0 differing cells in cv2d and ci2d), its candidate share, and
+    its time (the first also with a cold L2 and beside its plain version)
+    beside the card's clocks. The bound of the first case counts what its
+    inputs need (`k4_work`) at the measured f32 rates `rates`
+    ({"minmax", "add"} operations a second)."""
     import torch
     from pislamfusion_tpu_torch.ops.features import fastselect as fs
     from pislamfusion_tpu_torch.ops.features import orb
     cell, thr, border = params.cell, params.min_threshold, orb.EDGE_THRESHOLD
-    errs = []
+    errs, row = [], None
 
     def views(packed, offs, shapes):
         return [packed[oy:oy + lh, ox:ox + lw]
                 for (lh, lw), (ox, oy) in zip(shapes, offs)]
+    print(f"K4 clocks before: {smi_sample()} (clocks.sm, power.draw, "
+          "power.limit, temperature.gpu)")
     for label, packed, offs, shapes in cases:
         ker = fs.fast_cell_winners(packed, offs, shapes, cell, thr, border)
         pln = fs.fast_cell_winners_plain(views(packed, offs, shapes), cell,
@@ -303,38 +405,56 @@ def check_fastselect(cases, params):
         err = max(float((kv - pv).abs().max()) for (kv, _), (pv, _) in
                   zip(ker, pln))
         errs.append(err)
+        n, ops, dense = k4_work(packed, offs, shapes, params)
         print(f"K4 fastselect {label}: {len(shapes)} levels, "
               f"{sum(h * w for h, w in shapes) / 1e6:.2f} Mpx, {n_cells} "
               f"cells of {cell} px, {sum(int((v > 0).sum()) for v, _ in pln)}"
               f" with a corner: {bad} differing cv2d/ci2d entries, max "
               f"|kernel - plain| {err:.3e} (bound: equal)")
+        print(f"  K4 {label} candidates: {n['cand']} of {n['scored']} "
+              f"scored pixels ({n['cand'] / n['scored']:.2%}) pass the "
+              f"pretest, {n['above']} ({n['above'] / n['scored']:.2%}) "
+              f"score above {thr}, {n['survivors']} survive NMS")
         if bad:
             raise AssertionError(f"K4 {label} disagrees with its plain "
                                  "version")
-    _, packed, offs, shapes = cases[0]
-    vs = views(packed, offs, shapes)
-    ms, plain, _ = timed(
-        "K4", lambda: fs.fast_cell_winners(packed, offs, shapes, cell, thr,
-                                           border),
-        lambda: fs.fast_cell_winners_plain(vs, cell, thr, border))
-    # bytes: each level pixel read once, the two outputs, the tables;
-    # operations: the FAST score of each unmasked pixel (16 differences,
-    # 64 for the 3-tap minima and maxima, 96 for the arcs, 3 to finish),
-    # NMS (9) and the cell reduction (2) of every pixel
-    plan = fs.winner_plan(tuple(shapes), tuple(offs), cell)
-    px = sum(h * w for h, w in shapes)
-    live = sum(max(h - 2 * border, 0) * max(w - 2 * border, 0)
-               for h, w in shapes)
-    nbytes = px * 4 + plan.n_cells * 8 + plan.levels.nbytes \
-        + plan.blocks.nbytes
-    ops = live * 179.0 + px * 11.0
-    bound = bound_ms(nbytes, ops, FP32_SINGLE_OPS_PER_S)
-    print(f"  K4 work: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations "
-          f"({live / 1e6:.2f} Mpx scored); bound {bound[0]:.5f} ms "
-          f"({bound[1]})")
-    return _row("fastselect", "pislamfusion_tpu_torch/csrc/fastselect.cu",
-                "pislamfusion_tpu/ops/features/fastselect.py:191", max(errs),
-                ms, plain, bound, None)
+        kernel = lambda: fs.fast_cell_winners(  # noqa: E731
+            packed, offs, shapes, cell, thr, border)
+        if row is None:
+            vs = views(packed, offs, shapes)
+            ms, plain, _ = timed(
+                f"K4 {label}", kernel,
+                lambda: fs.fast_cell_winners_plain(vs, cell, thr, border))
+            cold = graph_ms_cold(kernel, flush)
+            print(f"  K4 {label} cold L2: kernel {cold:.4f} ms")
+            plan = fs.winner_plan(tuple(shapes), tuple(offs), cell)
+            nbytes = n["px"] * 4 + plan.n_cells * 8 + plan.levels.nbytes \
+                + plan.blocks.nbytes
+            t_alu = ops["alu"] / rates["minmax"] * 1e3
+            t_fma = ops["fma"] / rates["add"] * 1e3
+            tb = nbytes / HBM_BYTES_PER_S * 1e3
+            bound = max((tb, "bytes"), (max(t_alu, t_fma), "operations"))
+            print(f"  K4 work: {nbytes / 1e6:.2f} MB, {ops['alu'] / 1e9:.3f}"
+                  f" G minima, maxima and comparisons at the measured "
+                  f"{rates['minmax'] / 1e12:.2f}e12/s and "
+                  f"{ops['fma'] / 1e9:.3f} G subtractions at "
+                  f"{rates['add'] / 1e12:.2f}e12/s for what these inputs "
+                  f"need ({sum(ops.values()) / 1e9:.3f} G; a dense score "
+                  f"would be {dense / 1e9:.3f} G); bound {bound[0]:.5f} ms "
+                  f"({bound[1]}), kernel {ms / bound[0]:.2f}x; plan "
+                  f"{plan.run} cells a block, {plan.blocks.shape[0]} "
+                  f"blocks, {plan.smem} bytes of shared memory, "
+                  f"{fs.occupancy(plan, cell, packed.device)} resident "
+                  "blocks an SM")
+            row = _row("fastselect",
+                       "pislamfusion_tpu_torch/csrc/fastselect.cu",
+                       "pislamfusion_tpu/ops/features/fastselect.py:191",
+                       None, ms, plain, bound, None)
+        else:
+            print(f"  K4 {label}: kernel {graph_ms(kernel):.4f} ms")
+    print(f"K4 clocks after: {smi_sample()}")
+    row["max_abs_err"] = max(errs)
+    return row
 
 
 def check_packedpyr(gray, params, r):
@@ -419,14 +539,54 @@ def check_patchgather(packed, pxy, radius):
                 plain, bound_ms(nbytes, 0.0, FP32_OPS_PER_S), None)
 
 
-def check_shearwarp(src, homs, patch_hw):
-    """K3 on each (label, homography) of `homs`: kernel vs plain."""
+def k3_cases(frames, poses, fx, device):
+    """K3's four cases, (label, src, h, patch_hw): FastVO's half resolution
+    (frame 0's pyrDown into the half-res patch of bench.py's geometry) and
+    the Map2D engine's full resolution (frame 0 into its 1536^2 patch),
+    each for the survey map and the map turned 100 degrees (the
+    transposed path)."""
+    import torch
+    from pislamfusion_tpu_torch.models import fastvo as fv
+    from pislamfusion_tpu_torch.ops import image as im
+    from pislamfusion_tpu_torch.ops import shearwarp as sw
+    H, W = frames.shape[1:3]
+    vo = make_fastvo(H, W, fx, poses, 1000, 8, 5, device)
+    pose0 = torch.as_tensor(poses[0]).to(device)
+    _, Hc2i = vo._patch_homography(pose0)
+    half = (vo.patch_tiles * fv.ELE // 2,) * 2
+    s_half = torch.diag(torch.tensor([0.5, 0.5, 1.0], device=device))
+    s_two = torch.diag(torch.tensor([2.0, 2.0, 1.0], device=device))
+    h_hs = s_half @ Hc2i @ s_two
+    m2d = make_map2d(3, H, W, fx, poses, device)
+    _, h_np = m2d._frame_geometry(poses[0].astype(np.float64))
+    full = (m2d.patch_tiles * fv.ELE,) * 2
+    h_full = torch.from_numpy(h_np.astype(np.float32)).to(device)
+    src = im.pyr_down(frames[0].to(torch.float32))
+    rgb0 = frames[0].to(torch.float32)
+    cases = [("survey", src, h_hs, half),
+             ("rotated 100 deg", src, rotate_about_center(h_hs, 100.0,
+                                                          half), half),
+             ("full-res survey", rgb0, h_full, full),
+             ("full-res rotated 100 deg", rgb0,
+              rotate_about_center(h_full, 100.0, full), full)]
+    for label, _, h, _ in cases:
+        if bool(sw._choose_transpose(h)) != ("rotated" in label):
+            raise AssertionError(f"K3 case {label}: expected the "
+                                 f"{'transposed' if 'rotated' in label else 'plain'}"
+                                 " path")
+    return cases
+
+
+def check_shearwarp(cases):
+    """K3 on each (label, src, h, patch_hw) of `cases`: kernel vs plain,
+    each timed beside its bound; the first of each resolution beside
+    grid_sample. Returns the first case's row."""
     import torch
     import torch.nn.functional as F
     from pislamfusion_tpu_torch.ops import image as im
     from pislamfusion_tpu_torch.ops import shearwarp as sw
-    errs, times = [], []
-    for label, h in homs:
+    errs, times, seen = [], [], set()
+    for label, src, h, patch_hw in cases:
         out, live, fit = sw.warp_patch(src, h, patch_hw)
         ref, live_p, _ = sw.warp_patch_plain(src, h, patch_hw)
         torch.cuda.synchronize()
@@ -441,37 +601,42 @@ def check_shearwarp(src, homs, patch_hw):
               f"{patch_hw + (src.shape[2],)}, transposed {tr}, live "
               f"{int(live.sum())}/{live.numel()}, fit err {float(fit):.3f}"
               f" px, max |kernel - plain| {err:.3e} (bound 1e-3), dead "
-              f"tiles max {dead_max}")
+              f"tiles max {dead_max}, bit-equal {bool(torch.equal(out, ref))}")
         if err > 1e-3 or dead_max != 0.0:
             raise AssertionError(f"K3 {label} disagrees with its plain "
                                  "version")
         errs.append(err)
         tr_t, prm, win = sw._params(src, h, patch_hw, sw.TILE, 2.2)
-        times.append(timed(
-            f"K3 {label}", lambda: sw.launch_kernel(
-                src, tr_t, prm, patch_hw, sw.TILE, win),
-            lambda: sw.warp_patch_plain(src, h, patch_hw)))
-    # library yardstick: torch's bilinear grid_sample of the same source
-    # at the same output size (a different function: projective bilinear
-    # sampling, not the two-pass resample)
-    grid = im.homography_grid(homs[0][1], patch_hw)
-    Hs, Ws = src.shape[0], src.shape[1]
-    gn = torch.stack([grid[..., 0] * 2 / (Ws - 1) - 1,
-                      grid[..., 1] * 2 / (Hs - 1) - 1], -1)[None]
-    src_nchw = src.permute(2, 0, 1)[None].contiguous()
-    library = graph_ms(lambda: F.grid_sample(src_nchw, gn, mode="bilinear",
-                                             align_corners=True))
-    print(f"  K3 library (grid_sample): {library:.4f} ms")
-    ph, pw = patch_hw
-    C = src.shape[2]
-    nbytes = src.numel() * 4 + 9 * 4 + ph * pw * C * 4
-    ops = ph * pw * (C * 24.0 + 40.0)
-    bound = bound_ms(nbytes, ops, FP32_OPS_PER_S)
-    print(f"  K3 {tuple(src.shape)} -> {patch_hw}: bound {bound[0]:.5f} ms "
-          f"({bound[1]})")
+        library = None
+        if patch_hw not in seen:
+            # library yardstick: torch's bilinear grid_sample of the same
+            # source at the same output size (a different function:
+            # projective bilinear sampling, not the two-pass resample)
+            seen.add(patch_hw)
+            grid = im.homography_grid(h, patch_hw)
+            Hs, Ws = src.shape[0], src.shape[1]
+            gn = torch.stack([grid[..., 0] * 2 / (Ws - 1) - 1,
+                              grid[..., 1] * 2 / (Hs - 1) - 1], -1)[None]
+            src_nchw = src.permute(2, 0, 1)[None].contiguous()
+            library = lambda: F.grid_sample(  # noqa: E731
+                src_nchw, gn, mode="bilinear", align_corners=True)
+        ms = timed(f"K3 {label}", lambda: sw.launch_kernel(
+            src, tr_t, prm, patch_hw, sw.TILE, win),
+            lambda: sw.warp_patch_plain(src, h, patch_hw), library)
+        ph, pw = patch_hw
+        C = src.shape[2]
+        nbytes = src.numel() * 4 + 9 * 4 + ph * pw * C * 4
+        ops = ph * pw * (C * 24.0 + 40.0)
+        bound = bound_ms(nbytes, ops, FP32_OPS_PER_S)
+        print(f"  K3 {label}: bound {bound[0]:.5f} ms ({bound[1]}), kernel "
+              f"{ms[0] / bound[0]:.2f}x; {sw.occupancy(C, win, src.device)}"
+              f" resident blocks an SM at {sw.smem_bytes(win, C)} bytes of "
+              "shared memory")
+        times.append((ms, bound))
+    (ms, plain, library), bound = times[0]
     return _row("shearwarp", "pislamfusion_tpu_torch/csrc/shearwarp.cu",
                 "pislamfusion_tpu/ops/shearwarp.py:505", max(errs),
-                times[0][0], times[0][1], bound, library)
+                ms, plain, bound, library)
 
 
 def check_bandedstack(xs, params, flush):
@@ -840,51 +1005,30 @@ def main() -> int:
         [[plan.pad_left, b + plan.cell]], dtype=torch.int32, device=dev)
         for (xy, _, _), b in zip(picks, plan.bases)])
     k2 = check_patchgather(packed, pxy, orb._GATHER_R)
-    # K7 at 1080p, and K4 on K1's and K7's 1080p pyramids (the same level
-    # shapes at other pitches and offsets) and on K7's pyramid of the
-    # small strip's frame 0 (600x640, 4 levels)
+    # K7 at 1080p; K4 on K1's and K7's 1080p pyramids (the same level
+    # shapes at other pitches and offsets), on K7's pyramid of the small
+    # strip's frame 0 (600x640, 4 levels) and on the noise frame's K1
+    # pyramid, its bound at the f32 rates measured here
     r = orb._GATHER_R
     packed7, k7 = check_packedpyr(gray, params, r)
-    plan7 = packedpyr.pyramid_plan(H, W, params.n_levels,
-                                   params.scale_factor, r)
-    fr_s, _ = render_strip(1, 600, 640, 600.0, 0.24, 1024, dev)
-    gray_s = im.rgb_to_gray(fr_s[0].to(torch.float32))
-    p_s = orb.OrbParams(n_features=256, n_levels=4)
-    plan_s = packedpyr.pyramid_plan(600, 640, 4, p_s.scale_factor, r)
-    k4 = check_fastselect([
-        ("1080p K1 pyramid", packed, offs, plan.shapes),
-        ("1080p K7 pyramid", packed7, [(r, b + r) for b in plan7.bases],
-         plan7.shapes),
-        ("600x640 K7 pyramid", packedpyr.build_packed_pyramid(
-            gray_s, 4, p_s.scale_factor, r),
-         [(r, b + r) for b in plan_s.bases], plan_s.shapes)], params)
-    src = im.pyr_down(frames[0].to(torch.float32))
+    del packed7
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "scripts"))
+    from torch_k4_k3_sweep import f32_rates
+    rates = f32_rates(dev)
+    print(f"f32 rates on this card: min/max {rates['minmax']:.4e}/s, add "
+          f"{rates['add']:.4e}/s (scripts/torch_k4_k3_sweep.py f32_rates)")
+    k4 = check_fastselect(k4_cases(frames[0], params, dev), params, flush,
+                          rates)
+    # K3 at FastVO's half resolution and at the Map2D engine's full
+    # resolution, each also for a map 100 degrees away (transposed)
+    cases3 = k3_cases(frames, poses, fx, dev)
+    k3 = check_shearwarp(cases3)
+    src, h_hs, half = cases3[0][1:]
+    rgb0, h_full, full = cases3[2][1:]
     _, Hc2i = vo._patch_homography(pose0)
-    half = (vo.patch_tiles * fv.ELE // 2,) * 2
-    s_half = torch.diag(torch.tensor([0.5, 0.5, 1.0], device=dev))
     s_two = torch.diag(torch.tensor([2.0, 2.0, 1.0], device=dev))
-    h_hs = s_half @ Hc2i @ s_two
-    h_rot = rotate_about_center(h_hs, 100.0, half)
-    if not (not bool(sw._choose_transpose(h_hs))
-            and bool(sw._choose_transpose(h_rot))):
-        raise AssertionError("K3 check: expected one plain and one "
-                             "transposed homography")
-    k3 = check_shearwarp(src, [("survey", h_hs), ("rotated 100 deg", h_rot)],
-                         half)
-    # K3 at the Map2D engine's full resolution: frame 0 of the strip into
-    # the engine's 1536^2 patch, and a map 100 degrees away
     m2d = make_map2d(3, H, W, fx, poses, dev)
-    _, h_np = m2d._frame_geometry(poses[0].astype(np.float64))
-    full = (m2d.patch_tiles * fv.ELE,) * 2
-    h_full = torch.from_numpy(h_np.astype(np.float32)).to(dev)
-    h_full_rot = rotate_about_center(h_full, 100.0, full)
-    if not (not bool(sw._choose_transpose(h_full))
-            and bool(sw._choose_transpose(h_full_rot))):
-        raise AssertionError("K3 full-res check: expected one plain and one "
-                             "transposed homography")
-    rgb0 = frames[0].to(torch.float32)
-    check_shearwarp(rgb0, [("full-res survey", h_full),
-                           ("full-res rotated 100 deg", h_full_rot)], full)
     # K5 and K6 on frame 0's SIFT detection: octave 0's input, and the
     # packed gradient image with the orientation and descriptor grids
     sp = sift.SiftParams(n_features=1000)

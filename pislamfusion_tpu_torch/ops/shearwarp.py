@@ -23,12 +23,19 @@ away from bilinear on smoothed noise.
 On the H100 the warp is bound by bytes: a half-res 768^2 x 3 patch from a
 540x960x3 source moves ~13 MB and does ~0.06 GFLOP. The TPU kernel
 spelled the shears as log-depth roll networks and the resamples as
-one-hot MXU matmuls because a TPU cannot gather; a GPU can, so the CUDA
-kernel (`csrc/shearwarp.cu`) evaluates the two-pass formula directly for
-each output pixel: 9 window reads per channel, all from L2, in f32 (the
-TPU's bf16 hi/lo split was an MXU device, not part of the function). The
-transpose decision is read on the device, so a frame's feed never waits
-on the host.
+one-hot MXU matmuls because a TPU cannot gather; a GPU can. The CUDA
+kernel (`csrc/shearwarp.cu`) gives each block a strip of `STRIP_ROWS`
+output rows of one tile: a dead tile's strip writes its zeros with
+16-byte stores; in a live one every thread computes the tile's constants
+and the strip's limits (no barrier waits on them), each pass-1 value
+I[v, x] its outputs read is computed once into shared memory (the source
+read along its rows in both orientations: the transposed one stages the
+source-row segments its rows read in shared memory), then pass 2 reads
+I and writes 16-byte stores. The wraps around the window take a
+compare-and-add where the strip's limits prove them within one period. All in f32 (the TPU's bf16 hi/lo split was an MXU
+device, not part of the function), in the plain version's order of
+operations. The transpose decision is read on the device, so a frame's
+feed never waits on the host.
 """
 from __future__ import annotations
 
@@ -42,6 +49,8 @@ from .. import _build
 from ..core.device import device_const
 
 TILE = 128
+STRIP_ROWS = 4          # output rows a block (csrc/shearwarp.cu R)
+_MAX_C = 4              # channels the kernel is instantiated for
 
 
 class TileParams(NamedTuple):
@@ -187,6 +196,52 @@ def _params(img, h_patch2img, patch_hw, tile, max_scale):
     return tr, prm, win
 
 
+def strip_extents(img, h_patch2img, patch_hw: Tuple[int, int],
+                  tile: int = TILE, max_scale: float = 2.2) -> dict:
+    """The kernel's buffer needs for each (tile, strip of STRIP_ROWS rows),
+    by its formulas (a host check, not on the frame path): `span` [nt,
+    strips], the window columns a row's pass 1 writes into I, at most the
+    window's width WW; `staged`, the floats a transposed strip needs: I
+    at its span and, for each of its window columns, its window rows L
+    times C at an odd pitch, its run's start and its phase (staged where
+    at most SMEM_FLOATS); with `live`
+    [nt, strips], `transpose` and the window `win`."""
+    tr, prm, win = _params(img, h_patch2img.to(torch.float32), patch_hw,
+                           tile, max_scale)
+    WH, WW = win
+    C = img.shape[2]
+    a00, a01, tx, a10, a11, ty = prm.affine.unbind(-1)
+    _, beta, _ = _pass_coeffs(a00, a01, tx, a10, a11, ty)
+    tm1 = float(tile - 1)
+
+    def bias(slope):
+        return torch.ceil(torch.clamp(-torch.clamp(slope * tm1, max=0.0),
+                                      min=0.0))
+
+    def ends(slope, idx, n):
+        pv = slope[:, None] * idx.to(torch.float32)
+        return torch.clamp(torch.floor(pv) + bias(slope)[:, None], 0, n - 3)
+    dev = a00.device
+    m2 = ends(a00, torch.tensor([[0, tile - 1]], device=dev), WW)
+    span = (m2[:, 1] - m2[:, 0]).abs() + 3
+    v0 = torch.arange(0, tile, STRIP_ROWS, device=dev)[None]
+    v1 = v0 + STRIP_ROWS - 1
+    m1a, m1b = ends(beta, v0, WH), ends(beta, v1, WH)
+    b2 = bias(a00)[:, None]
+    n2a = torch.floor(a01[:, None] * v0.to(torch.float32) + tx[:, None] - b2)
+    n2b = torch.floor(a01[:, None] * v1.to(torch.float32) + tx[:, None] - b2)
+    xlen = span[:, None] + (n2a - n2b).abs()
+    seg = (m1b - m1a).abs() + 3
+    pitch = torch.bitwise_or((seg * C).to(torch.int64), 1)
+    strips = v0.numel()
+    return {"transpose": bool(tr), "win": win,
+            "live": prm.live[:, None].expand(-1, strips),
+            "span": span[:, None].expand(-1, strips).to(torch.int64),
+            "staged": (STRIP_ROWS * C * (span + torch.div(
+                span, 32, rounding_mode="floor") + 1))[:, None].to(
+                torch.int64) + xlen.to(torch.int64) * (pitch + 2)}
+
+
 def warp_patch_plain(img, h_patch2img, patch_hw: Tuple[int, int],
                      tile: int = TILE, max_scale: float = 2.2):
     """Plain PyTorch version: the two passes evaluated for each output
@@ -250,16 +305,67 @@ def warp_patch(img, h_patch2img, patch_hw: Tuple[int, int],
         return warp_patch_plain(img, h_patch2img, patch_hw, tile, max_scale)
     if img.device.type != "cuda":
         raise ValueError(f"warp_patch: unsupported device {img.device}")
-    if img.dtype != torch.float32 or img.ndim != 3:
-        raise ValueError("warp_patch: img must be float32 [H, W, C]")
+    if img.dtype != torch.float32 or img.ndim != 3 \
+            or not 1 <= img.shape[2] <= _MAX_C:
+        raise ValueError(f"warp_patch: img must be float32 [H, W, C] with "
+                         f"C <= {_MAX_C}")
+    if img.numel() >= 2 ** 31:
+        raise ValueError("warp_patch: the kernel indexes the image with "
+                         "32-bit offsets")
+    if tile % STRIP_ROWS or tile % 4:
+        raise ValueError(f"warp_patch: the tile {tile} is not a multiple "
+                         f"of {STRIP_ROWS} rows")
     if h_patch2img.device != img.device or h_patch2img.shape != (3, 3):
         raise ValueError("warp_patch: homography must be [3, 3] on img's "
                          "device")
     img = img.contiguous()
     tr, prm, win = _params(img, h_patch2img.to(torch.float32), patch_hw,
                            tile, max_scale)
+    smem_bytes(win, img.shape[2])            # raises where I cannot fit
     out = launch_kernel(img, tr, prm, patch_hw, tile, win)
     return out, prm.live.reshape(ph // tile, pw // tile), prm.max_fit_err
+
+
+SMEM_FLOATS = 13824     # shared memory a block (csrc/shearwarp.cu SMEM)
+
+
+def smem_bytes(win_hw, C: int) -> int:
+    """Dynamic shared memory of a block (csrc/shearwarp.cu
+    shearwarp_smem): SMEM_FLOATS, which must hold I of STRIP_ROWS rows x
+    C channels at the window's padded width; beside I at a strip's own
+    span, the transposed path stages its source segments."""
+    WW = win_hw[1]
+    if STRIP_ROWS * C * (WW + (WW >> 5) + 1) > SMEM_FLOATS:
+        raise ValueError(f"warp_patch: a {WW}-column window does not fit "
+                         f"the kernel's shared memory at C={C}")
+    return SMEM_FLOATS * 4
+
+
+def _lib():
+    """The kernel library (`_build.load`'s, which a sweep may swap), with
+    its launch signatures set once."""
+    lib = _build.load("shearwarp")
+    if not getattr(lib, "signatures_set", False):
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.shearwarp_launch.restype = I
+        lib.shearwarp_launch.argtypes = [P, I, I, I, P, P, P, P, I, I, I, I,
+                                         I, P, P]
+        for fn in (lib.shearwarp_occupancy, lib.shearwarp_smem):
+            fn.restype = I
+            fn.argtypes = [I, I]
+        lib.signatures_set = True
+    return lib
+
+
+def occupancy(C: int, win_hw, device) -> int:
+    """The kernel's resident blocks an SM on `device` for C channels and
+    the window (registers included)."""
+    lib = _lib()
+    if lib.shearwarp_smem(C, win_hw[1]) != smem_bytes(win_hw, C):
+        raise RuntimeError("shearwarp: host and kernel disagree on the "
+                           "shared memory a block")
+    with torch.cuda.device(device):
+        return lib.shearwarp_occupancy(C, win_hw[1])
 
 
 def launch_kernel(img, tr, prm: TileParams, patch_hw, tile: int, win_hw):
@@ -274,15 +380,12 @@ def launch_kernel(img, tr, prm: TileParams, patch_hw, tile: int, win_hw):
     live = prm.live.to(torch.int32).contiguous()
     trf = tr.to(torch.int32).reshape(1)
     out = torch.empty((ph, pw, C), dtype=torch.float32, device=img.device)
-    fn = _build.load("shearwarp").shearwarp_launch
-    fn.restype = ctypes.c_int
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, I, I, I, P, P, P, P, I, I, I, I, I, P, P]
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = fn(img.data_ptr(), H, W, C, trf.data_ptr(), aff.data_ptr(),
-                 window.data_ptr(), live.data_ptr(), ph, pw, tile, WH, WW,
-                 out.data_ptr(), stream)
+        err = _lib().shearwarp_launch(
+            img.data_ptr(), H, W, C, trf.data_ptr(), aff.data_ptr(),
+            window.data_ptr(), live.data_ptr(), ph, pw, tile, WH, WW,
+            out.data_ptr(), stream)
     _build.check(err, "shearwarp")
     warp_patch.launches += 1
     return out

@@ -1,4 +1,5 @@
-"""K1, K5, K6 and K8 from one checkout of the port, for kernel A/B runs.
+"""K1, K3, K4, K5, K6 and K8 from one checkout of the port, for kernel
+A/B runs.
 
     python3 scripts/torch_kernel_ab.py ROOT [ROOT ...]
 
@@ -22,7 +23,13 @@ kernels and times, on the same seeded inputs at the shapes
 - K6 (`patchgather.bilinear_grid`) on a 1080p frame's packed gradient
   image (2217x1920x2) at 1000 keypoints, on the orientation grid (16x16,
   radius 4.5 sigma, unrotated) and the descriptor grid (16x16, radius 3
-  sigma, rotated), beside `grid_sample` at the same points.
+  sigma, rotated), beside `grid_sample` at the same points;
+- K4 (`fastselect.fast_cell_winners`) on the K1 pyramid of bench.py's
+  1080p strip frame and of a sigma-40 noise frame (`chip_smoke.k4_cases`),
+  equal to its plain version;
+- K3 (`shearwarp.warp_patch`'s kernel) on its four cases
+  (`chip_smoke.k3_cases`: half and full resolution, survey and turned 100
+  degrees), within 1e-3 of its plain version.
 
 Each time is the device time of one call from 20 captured in one CUDA
 graph, warm (the inputs in L2 from the call before) and cold (a 128 MB
@@ -31,8 +38,11 @@ its cold time spreads by some 20 % between graphs): `chip_smoke.graph_ms`
 and `graph_ms_cold` of this script's checkout serve every ROOT. Then,
 where the kernels run among the paths' other work, SIFT's and ORB's
 FastVO paths (`chip_smoke.make_fastvo`, 8 frames of bench.py's 1080p
-strip after a warm-up pass) under torch.profiler: the device ms a frame
-of K5, K6 and K8 on SIFT's path and of K1 on ORB's, every launch summed.
+strip after a warm-up pass) and the Map2D Type 3 feed
+(`chip_smoke.make_map2d`, the same 8 frames after a warm-up pass) under
+torch.profiler: the device ms a frame of K3, K5, K6 and K8 on SIFT's
+path, of K1, K3 and K4 on ORB's, and of K3 on the Map2D feed, every
+launch summed.
 Prints one JSON line a ROOT, in the order given: give the roots as A B B
 A to see the spread beside the difference. Needs a CUDA device.
 """
@@ -92,25 +102,19 @@ def sift_grids(dev, seed: int = 7):
 _MARKS = {"flatpyr": ("flatpyr_kernel", "::row_pass(", "::col_pass("),
           "bandedstack": ("bandedstack_kernel",),
           "bilineargrid": ("bilineargrid_kernel",),
-          "bandedsandwich": ("bandedsandwich_kernel",)}
+          "bandedsandwich": ("bandedsandwich_kernel",),
+          "fastselect": ("fastselect_kernel",),
+          "shearwarp": ("shearwarp_kernel",)}
 
 
-def path_ms(dev, detector: str, kernels, n: int = 8) -> dict:
-    """The device ms a frame of each of `kernels` on FastVO's path with
-    `detector` over n frames of bench.py's 1080p strip, from
-    torch.profiler, after a warm-up pass."""
+def _profiled(run, kernels, n: int) -> dict:
+    """The device ms a frame of each of `kernels` over run() (n frames),
+    from torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from chip_smoke import make_fastvo, render_strip
-    H, W, fx = 1080, 1920, 1200.0
-    frames, poses = render_strip(n, H, W, fx, 0.12, 6144, dev)
-    make = lambda: make_fastvo(H, W, fx, poses, 1000, 8, 5, dev,  # noqa
-                               detector)
-    make().process(frames, poses[0])
-    vo = make()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        vo.process(frames, poses[0])
+        run()
         torch.cuda.synchronize()
     us = {name: 0.0 for name in kernels}
     for e in prof.events():
@@ -120,6 +124,68 @@ def path_ms(dev, detector: str, kernels, n: int = 8) -> dict:
             if any(m in e.name for m in _MARKS[name]):
                 us[name] += e.time_range.end - e.time_range.start
     return {name: t / 1e3 / n for name, t in us.items()}
+
+
+def path_ms(dev, detector: str, kernels, n: int = 8) -> dict:
+    """The device ms a frame of each of `kernels` on FastVO's path with
+    `detector` over n frames of bench.py's 1080p strip, from
+    torch.profiler, after a warm-up pass."""
+    from chip_smoke import make_fastvo, render_strip
+    H, W, fx = 1080, 1920, 1200.0
+    frames, poses = render_strip(n, H, W, fx, 0.12, 6144, dev)
+    make = lambda: make_fastvo(H, W, fx, poses, 1000, 8, 5, dev,  # noqa
+                               detector)
+    make().process(frames, poses[0])
+    vo = make()
+    return _profiled(lambda: vo.process(frames, poses[0]), kernels, n)
+
+
+def map2d_ms(dev, kernels, n: int = 8) -> dict:
+    """The same for the Map2D Type 3 feed (`chip_smoke.make_map2d`) over
+    n frames of the strip."""
+    from chip_smoke import _feed_all, make_map2d, render_strip
+    H, W, fx = 1080, 1920, 1200.0
+    frames, poses = render_strip(n, H, W, fx, 0.12, 6144, dev)
+    _feed_all(make_map2d(3, H, W, fx, poses, dev), frames, poses)
+    m = make_map2d(3, H, W, fx, poses, dev)
+    return _profiled(lambda: _feed_all(m, frames, poses), kernels, n)
+
+
+def k4_k3_ms(dev, flush) -> tuple:
+    """K4's and K3's warm and cold times on chip_smoke.py's cases, each
+    checked against its plain version."""
+    import torch
+    from chip_smoke import (graph_ms, graph_ms_cold, k3_cases, k4_cases,
+                            make_fastvo, render_strip)
+    from pislamfusion_tpu_torch.ops import shearwarp as sw
+    from pislamfusion_tpu_torch.ops.features import fastselect as fs
+    from pislamfusion_tpu_torch.ops.features import orb
+    H, W, fx = 1080, 1920, 1200.0
+    frames, poses = render_strip(2, H, W, fx, 0.12, 6144, dev)
+    p = make_fastvo(H, W, fx, poses, 1000, 8, 5, dev).params
+    cell, thr, border = p.cell, p.min_threshold, orb.EDGE_THRESHOLD
+    k4 = {}
+    for label, packed, offs, shapes in k4_cases(frames[0], p, dev)[::3]:
+        fn = lambda: fs.fast_cell_winners(  # noqa: E731
+            packed, offs, shapes, cell, thr, border)
+        ref = fs.fast_cell_winners_plain(
+            [packed[oy:oy + lh, ox:ox + lw]
+             for (lh, lw), (ox, oy) in zip(shapes, offs)], cell, thr, border)
+        for (kv, ki), (rv, ri) in zip(fn(), ref):
+            if not (torch.equal(kv, rv) and torch.equal(ki, ri)):
+                raise AssertionError(f"K4 {label}: kernel != plain")
+        k4[label] = {"warm": graph_ms(fn), "cold": graph_ms_cold(fn, flush)}
+    k3 = {}
+    for label, src, h, patch_hw in k3_cases(frames, poses, fx, dev):
+        err = float((sw.warp_patch(src, h, patch_hw)[0]
+                     - sw.warp_patch_plain(src, h, patch_hw)[0]).abs().max())
+        if not err <= 1e-3:
+            raise AssertionError(f"K3 {label}: |kernel - plain| {err}")
+        tr, prm, win = sw._params(src, h, patch_hw, sw.TILE, 2.2)
+        fn = lambda: sw.launch_kernel(src, tr, prm, patch_hw,  # noqa
+                                      sw.TILE, win)
+        k3[label] = {"warm": graph_ms(fn), "cold": graph_ms_cold(fn, flush)}
+    return k4, k3
 
 
 def one(root: str) -> dict:
@@ -196,16 +262,19 @@ def one(root: str) -> dict:
         k6[label] = {"warm": graph_ms(fn),
                      "cold": [graph_ms_cold(fn, flush) for _ in range(3)],
                      "grid_sample": graph_ms(lib)}
+    k4, k3 = k4_k3_ms(dev, flush)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     return {"root": root, "card": card, "k1_ms": k1, "k5_ms": k5,
-            "k8_ms": k8, "k6_ms": k6,
+            "k8_ms": k8, "k6_ms": k6, "k4_ms": k4, "k3_ms": k3,
             "sift_path_ms_per_frame": path_ms(
                 dev, "sift", ("bandedstack", "bilineargrid",
-                              "bandedsandwich")),
-            "orb_path_ms_per_frame": path_ms(dev, "orb", ("flatpyr",))}
+                              "bandedsandwich", "shearwarp")),
+            "orb_path_ms_per_frame": path_ms(
+                dev, "orb", ("flatpyr", "fastselect", "shearwarp")),
+            "map2d_type3_feed_ms_per_frame": map2d_ms(dev, ("shearwarp",))}
 
 
 def main() -> int:

@@ -34,7 +34,19 @@ paths, without JAX.
 K4 fused FAST+NMS+select: equal (0 differing cells in cv2d and ci2d) to
 the interpreted kernel on tests/test_fastselect.py's cases (two levels,
 integer ties, no corners, cell 16); through a packed buffer and level
-offsets, equal to the per-level plain version.
+offsets, equal to the per-level plain version. Its exact pretest keeps
+every pixel whose masked score is > 0 (noise, a strip frame, flat
+regions, a step edge, integers; thresholds 0, 7 and 20); the kernel's
+passes emulated on its plan's blocks (pretest, candidates scored alone,
+NMS survivors reduced a cell) equal the plain version bit for bit on
+chip_smoke.py's three pyramid layouts at a small size; every cell
+belongs to one block's run.
+K3 shear warp, the kernel's strips emulated in numpy f32 (the strip's
+limits and wrap proof, pass 1 once per (v, x), the transposed source
+staged by segments or read in place, pass 2 from I): equal to the plain
+version bit for bit in both orientations and at |a00| near the largest
+the window admits; every live strip's rows fit I, and a transposed strip
+within the window's provisioned scale fits its staged segments.
 K7 packed pyramid: the reference's plan, regime and every level's (lh +
 2r, lw + 2r) block equal to the interpreted kernel (both sum the taps as
 one fused multiply-add chain), zeros elsewhere.
@@ -334,6 +346,224 @@ def test_shearwarp_wrapper_refuses_other_devices():
     with pytest.raises(ValueError):
         tsw.warp_patch(torch.empty((240, 320, 3), device="meta"),
                        torch.empty((3, 3), device="meta"), (256, 256))
+
+
+def _f32(x):
+    return np.float32(x)
+
+
+def _tent(gf):
+    one = np.float32(1.0)
+    return (np.maximum(np.float32(0.0), one - gf),
+            one - np.abs(gf - one), np.maximum(np.float32(0.0), gf - one))
+
+
+def _resample_m(slope, bias, i, n):
+    pv = slope * np.asarray(i, np.float32)
+    g = pv - np.floor(pv)
+    return np.clip((np.floor(pv) + bias).astype(np.int64), 0, n - 3), g
+
+
+def _shear_n(slope, off, bias, i):
+    sx = (slope * np.asarray(i, np.float32) + off) - bias
+    fl = np.floor(sx)
+    return fl.astype(np.int64), sx - fl
+
+
+def _wrap(a, n, near):
+    """The kernel's wraps: the compare-and-add one only where proven."""
+    if near:
+        assert (a >= -n).all() and (a < 2 * n).all()
+        return np.where(a < 0, a + n, np.where(a >= n, a - n, a))
+    return np.mod(a, n)
+
+
+def _emulate_shearwarp(img, h, patch_hw, tile=128, staged=True):
+    """csrc/shearwarp.cu in numpy f32, strip by strip: the tile's
+    constants, the strip's limits and wrap proof (the columns within a
+    period of the window, n1's run ends bound the rows), pass 1 once per (v, x) into I (the transposed
+    orientation through the per-warp source-row segments, unless
+    `staged` is False or the segment does not fit in a warp), then pass 2
+    from I."""
+    src = np.asarray(img, np.float32)
+    tr_t, prm, (WH, WW) = tsw._params(torch.from_numpy(src),
+                                      torch.from_numpy(h), patch_hw, tile,
+                                      2.2)
+    tr = bool(tr_t)
+    aff, win = prm.affine.numpy(), prm.window.numpy()
+    live = prm.live.numpy()
+    H, W, C = src.shape
+    sh, sw = (W, H) if tr else (H, W)
+    R, T = tsw.STRIP_ROWS, tile
+    ph, pw = patch_hw
+    ntx = pw // T
+    out = np.zeros((ph, pw, C), np.float32)
+    paths = set()
+
+    def pix(r_, c_):      # source pixels [..., C] at window-space (row, col)
+        return src[c_, r_] if tr else src[r_, c_]
+    for t in np.nonzero(live)[0]:
+        a00, a01, tx, a10, a11, ty = (np.float32(v) for v in aff[t])
+        wy, wx = (int(v) for v in win[t])
+        safe = a00 if abs(a00) >= 1e-6 else np.float32(1e-6)
+        alpha = a10 / safe
+        beta = (a00 * a11 - a01 * a10) / safe
+        gamma = ty - alpha * tx
+        tm1 = np.float32(T - 1)
+        z = np.float32(0.0)
+        bias1 = np.ceil(max(z, -min(z, beta * tm1)))
+        bias2 = np.ceil(max(z, -min(z, a00 * tm1)))
+        m2, g2 = _resample_m(a00, bias2, np.arange(T), WW)
+        m2lo, span = int(m2.min()), int(m2.max() - m2.min()) + 3
+        assert m2lo == min(m2[0], m2[-1])           # monotone
+        for v0 in range(0, T, R):
+            v = np.arange(v0, v0 + R)
+            n2, f2 = _shear_n(a01, tx, bias2, v)
+            m1, g1 = _resample_m(beta, bias1, v, WH)
+            assert span <= WW
+            xmin = m2lo + int(min(n2[0], n2[-1]))
+            xlen = m2lo + span - 1 + int(max(n2[0], n2[-1])) - xmin + 1
+            m1lo, m1hi = int(min(m1[0], m1[-1])), int(max(m1[0], m1[-1]))
+            # the wraps' proof: the columns within one period of the
+            # window, and n1 at the ends of each unwrapped run of them
+            # bounds the rows
+            near = False
+            if xmin >= -WW and xmin + xlen - 1 < 2 * WW:
+                if xlen >= WW:
+                    xe = [0, WW - 1]
+                else:
+                    xe = [int(_wrap(np.array([v]), WW, True)[0])
+                          for v in (xmin, xmin + xlen - 1)]
+                    if xe[1] < xe[0]:
+                        xe += [0, WW - 1]
+                ne = _shear_n(alpha, gamma, bias1, np.array(xe))[0]
+                near = (m1lo + int(ne.min()) >= -WH
+                        and m1hi + 2 + int(ne.max()) < 2 * WH)
+            col_near = row_near = near
+
+            def phases(x):
+                return _shear_n(alpha, gamma, bias1, x)
+            xlo = m2lo + n2
+            I = np.full((R, span, C), np.nan, np.float32)
+            L = m1hi - m1lo + 3
+            need = R * C * (span + span // 32 + 1) \
+                + xlen * (((L * C) | 1) + 2)
+            if staged and tr and need <= tsw.SMEM_FLOATS:
+                paths.add("staged")
+                X = xmin + np.arange(xlen)
+                x = _wrap(X, WW, col_near)
+                n1, f1 = phases(x)
+                scol = np.minimum(wx + x, sw - 1)
+                rows = _wrap(m1lo + n1[:, None] + np.arange(L), WH,
+                             row_near)
+                seg = pix(np.minimum(wy + rows, sh - 1), scol[:, None])
+                for r in range(R):
+                    k = X - xlo[r]
+                    sel = (k >= 0) & (k < span)
+                    w1 = _tent(g1[r] + f1[sel])
+                    e0 = m1[r] - m1lo
+                    iv = np.zeros((int(sel.sum()), C), np.float32)
+                    for j in range(3):
+                        iv = iv + w1[j][:, None] * seg[sel, e0 + j]
+                    I[r, k[sel]] = iv
+            else:
+                paths.add("direct")
+                for r in range(R):
+                    x = _wrap(xlo[r] + np.arange(span), WW, col_near)
+                    n1, f1 = phases(x)
+                    w1 = _tent(g1[r] + f1)
+                    scol = np.minimum(wx + x, sw - 1)
+                    iv = np.zeros((span, C), np.float32)
+                    for j in range(3):
+                        rr = _wrap(m1[r] + j + n1, WH, row_near)
+                        iv = iv + w1[j][:, None] * pix(
+                            np.minimum(wy + rr, sh - 1), scol)
+                    I[r] = iv
+            assert not np.isnan(I).any()
+            ty_, tx_ = divmod(int(t), ntx)
+            for r in range(R):
+                w2 = _tent(f2[r] + g2)
+                acc = np.zeros((T, C), np.float32)
+                for i in range(3):
+                    acc = acc + w2[i][:, None] * I[r, m2 - m2lo + i]
+                out[ty_ * T + v0 + r, tx_ * T:(tx_ + 1) * T] = acc
+    return out, live, paths
+
+
+# (rotation, scale x, scale y, translation): _WARPS, and a map stretched
+# along x near the largest |a00| the window admits (|a00| * 128 + 4 < 640)
+_STRIP_WARPS = dict(
+    {k: (th, s, s, t) for k, (th, s, t) in _WARPS.items()},
+    stretched=(2.0, 4.85, 1.0, (10.0, 40.0)),
+    stretched_transposed=(92.0, 4.85, 1.0, (330.0, 10.0)))
+
+
+def _strip_homography(case):
+    th, sx, sy, t = _STRIP_WARPS[case]
+    h = _homography(th, 1.0, t)
+    h[:2, :2] = h[:2, :2] @ np.diag([sx, sy]).astype(np.float32)
+    return h
+
+
+@pytest.mark.parametrize("case, staged", [
+    ("plain", True), ("transposed", True), ("transposed", False),
+    ("dead_tile", True), ("stretched", True),
+    ("stretched_transposed", True)])
+def test_shearwarp_staged_passes_compute_the_plain_version(case, staged):
+    src = _smooth_src(12)
+    if case.startswith("stretched"):
+        src = np.tile(src, (3, 3, 1))[:700, :700]
+    h = _strip_homography(case)
+    patch_hw = (256, 128) if case.startswith("stretched") else (256, 256)
+    got, live, paths = _emulate_shearwarp(src, h, patch_hw, staged=staged)
+    ref, ref_live, _ = tsw.warp_patch_plain(
+        torch.from_numpy(src), torch.from_numpy(h), patch_hw)
+    assert live.any() and np.array_equal(live, ref_live.numpy().ravel())
+    tr = bool(tsw._choose_transpose(torch.from_numpy(h)))
+    # beyond the window's provisioned scale the segments outgrow their
+    # buffer and the transposed strips take the untransposed path
+    fits = staged and case != "stretched_transposed"
+    assert paths == ({"staged"} if tr and fits else {"direct"})
+    np.testing.assert_array_equal(got, ref.numpy())
+    if case.startswith("stretched"):
+        aff = tsw._params(torch.from_numpy(src), torch.from_numpy(h),
+                          patch_hw, tsw.TILE, 2.2)[1].affine
+        assert float(aff[:, 0].abs().max()) > 4.5 and live.all()
+
+
+def test_shearwarp_buffer_holds_every_live_tile():
+    """Every live strip's rows fit the kernel's I buffer (<= WW columns),
+    for the cases above and random maps; and every transposed live strip
+    of a map within the window's provisioned scale (2.2, any rotation and
+    a mild perspective) fits its staged segments (`strip_extents`, which
+    follows the kernel's limits); others take the untransposed path."""
+    rng = np.random.default_rng(5)
+    hs = [_strip_homography(c) for c in _STRIP_WARPS]
+    for _ in range(40):
+        th = rng.uniform(-180, 180)
+        s = rng.uniform(0.3, 3.4, 2).astype(np.float32)
+        h = _homography(th, 1.0, rng.uniform(-100, 400, 2), persp=(
+            rng.uniform(-4e-5, 4e-5), rng.uniform(-4e-5, 4e-5)))
+        h[:2, :2] = h[:2, :2] @ np.diag(s)
+        hs.append(h)
+    src = torch.zeros((700, 700, 3))
+    n_live = n_staged = 0
+    for h in hs:
+        ext = tsw.strip_extents(src, torch.from_numpy(h), (256, 256))
+        live = ext["live"]
+        n_live += int(live.sum())
+        assert bool((ext["span"][live] <= ext["win"][1]).all())
+    for th in np.arange(45.0, 136.0, 5.0):
+        for sc in (1.0, 1.6, 2.2):
+            h = _homography(th, sc, (500.0, 100.0))
+            ext = tsw.strip_extents(torch.zeros((900, 900, 3)),
+                                    torch.from_numpy(h), (256, 256))
+            live = ext["live"]
+            if ext["transpose"] and bool(live.any()):
+                assert bool((ext["staged"][live] <= tsw.SMEM_FLOATS).all()), \
+                    (th, sc)
+                n_staged += int(live.sum())
+    assert n_live > 200 and n_staged > 100
 
 
 # the size of tests/test_stencil_pallas.py's stack test
@@ -780,6 +1010,187 @@ def test_fastselect_wrapper_refuses_other_devices():
     with pytest.raises(ValueError):
         tfs.fast_cell_winners(torch.empty((64, 64), device="meta"),
                               [(0, 0)], [(64, 64)], 32, 7.0, 16)
+
+
+def _pretest_images():
+    """(label, image [H, W] f32) for the pretest: noise, a survey strip
+    frame, flat regions, a step edge."""
+    from chip_smoke import render_strip
+    rng = np.random.default_rng(21)
+    noise = np.clip(rng.normal(128, 40, (96, 128)), 0, 255)
+    strip = render_strip(1, 120, 160, 600.0, 0.24, 1024, "cpu")[0][0]
+    flat = np.full((64, 96), 90.0)
+    flat[20:44, 30:70] = 160.0
+    flat[30:36, 40:48] = 20.0
+    step = np.zeros((64, 96))
+    step[:, 48:] = 200.0
+    step[32:, :20] = 120.0
+    gray = strip.to(torch.float32).mean(-1).numpy()
+    return [("noise", noise), ("strip", gray), ("flat", flat),
+            ("step", step), ("integer", rng.integers(0, 24, (64, 96)))]
+
+
+@pytest.mark.parametrize("thr", [0.0, 7.0, 20.0])
+def test_fastselect_pretest_keeps_every_corner(thr):
+    for label, img in _pretest_images():
+        x = torch.from_numpy(np.asarray(img, np.float32))
+        score = tfs.fast_score_map(x)
+        masked = torch.where(score > thr, score, 0.0)
+        ok = tfs.fast_pretest(x, thr, torb.EDGE_THRESHOLD)
+        inner = torch.zeros_like(ok)
+        b = torb.EDGE_THRESHOLD
+        inner[b:-b, b:-b] = True
+        lost = (masked > 0) & inner & ~ok
+        assert not bool(lost.any()), (label, int(lost.sum()))
+        # the pretest is a cut, not a pass-through, on all but flat noise
+        if label in ("strip", "step", "flat"):
+            assert float(ok.float().mean()) < 0.5, label
+
+
+def _fast16_at(slab, b, r, c):
+    """The kernel's fast16 at slab[b, r, c] (the taps of csrc/fastselect.cu
+    in OpenCV order, 3-tap minima and maxima, then the arcs)."""
+    d = torch.stack([slab[b, r + int(dy), c + int(dx)]
+                     for dx, dy in tfs._CIRCLE], -1) - slab[b, r, c][:, None]
+    idx = torch.arange(16)
+    mn3 = torch.minimum(torch.minimum(d, d[:, (idx + 1) % 16]),
+                        d[:, (idx + 2) % 16])
+    mx3 = torch.maximum(torch.maximum(d, d[:, (idx + 1) % 16]),
+                        d[:, (idx + 2) % 16])
+    pos = torch.minimum(torch.minimum(mn3, mn3[:, (idx + 3) % 16]),
+                        mn3[:, (idx + 6) % 16]).amax(-1)
+    neg = torch.maximum(torch.maximum(mx3, mx3[:, (idx + 3) % 16]),
+                        mx3[:, (idx + 6) % 16]).amin(-1)
+    return torch.maximum(pos, -neg)
+
+
+def _emulate_fastselect(packed, offs, shapes, cell, thr, border):
+    """csrc/fastselect.cu on its plan's blocks: each block's slab (zero
+    outside its level), the pretest on its score tile, the candidates
+    scored alone (0 elsewhere), the NMS survivors of its cells reduced to
+    (max, first index). Returns [(cv2d, ci2d)] per level."""
+    plan = tfs.winner_plan(tuple(shapes), tuple(offs), cell)
+    run, FR = plan.run, tfs._FAST_R
+    tw, th = run * cell + 2, cell + 2
+    sw, sh = tw + 2 * FR, th + 2 * FR
+    out = []
+    for lvl, (oy, ox, lh, lw, ncx, _) in enumerate(plan.levels.tolist()):
+        blk = torch.from_numpy(plan.blocks[plan.blocks[:, 0] == lvl]
+                               ).long()
+        nb = blk.shape[0]
+        ys = blk[:, 1:2] * cell - 1 - FR + torch.arange(sh)
+        xs = blk[:, 2:3] * cell - 1 - FR + torch.arange(sw)
+        inside = (((ys >= 0) & (ys < lh))[:, :, None]
+                  & ((xs >= 0) & (xs < lw))[:, None, :])
+        vals = packed[(oy + ys.clamp(0, lh - 1))[:, :, None],
+                      (ox + xs.clamp(0, lw - 1))[:, None, :]]
+        slab = torch.where(inside, vals, torch.zeros_like(vals))
+        # pass 1: the pretest at every tile position (r, c), slab (r+3, c+3)
+        y = ys[:, FR:FR + th, None]
+        x = xs[:, None, FR:FR + tw]
+        ok = (y >= border) & (y < lh - border) & (x >= border) \
+            & (x < lw - border)
+        tap = [slab[:, FR + int(dy):FR + int(dy) + th,
+                    FR + int(dx):FR + int(dx) + tw] for dx, dy in tfs._CIRCLE]
+        ctr = slab[:, FR:FR + th, FR:FR + tw]
+        hi = lo = None
+        for a, b in tfs._PRETEST_PAIRS:
+            h_, l_ = torch.maximum(tap[a], tap[b]), torch.minimum(tap[a],
+                                                                  tap[b])
+            hi = h_ if hi is None else torch.minimum(hi, h_)
+            lo = l_ if lo is None else torch.maximum(lo, l_)
+        cand = ok & ((hi - ctr > thr) | (lo - ctr < -thr))
+        # pass 2: score the candidates alone
+        b, r, c = cand.nonzero(as_tuple=True)
+        sc = _fast16_at(slab, b, r + FR, c + FR)
+        s = torch.zeros((nb, th, tw))
+        s[b, r, c] = torch.where(sc > thr, sc, torch.zeros_like(sc))
+        # pass 3: the candidates in the cells with a score > 0 that is >=
+        # its 8 neighbours
+        v = s[b, r, c]
+        keep = (v > 0) & (r >= 1) & (r <= cell) & (c >= 1) & (c <= run * cell)
+        b, r, c, v = b[keep], r[keep], c[keep], v[keep]
+        m = torch.stack([s[b, r + dy, c + dx] for dy in (-1, 0, 1)
+                         for dx in (-1, 0, 1) if dy or dx]).amax(0)
+        keep = v >= m
+        b, r, c, v = b[keep], r[keep], c[keep], v[keep]
+        q = (c - 1) // cell
+        wp = ncx * cell
+        idx = (blk[b, 1] * cell + r - 1) * wp + blk[b, 2] * cell + c - 1
+        grp = b * run + q
+        best = torch.zeros(nb * run).scatter_reduce(0, grp, v, "amax")
+        at = torch.full((nb * run,), 2 ** 31 - 1, dtype=torch.int64)
+        at = at.scatter_reduce(0, grp[v == best[grp]], idx[v == best[grp]],
+                               "amin")
+        ncy = -(-lh // cell)
+        k = torch.arange(nb * run)
+        cy, cx = blk[k // run, 1], blk[k // run, 2] + k % run
+        real = cx < ncx
+        first = cy * cell * wp + cx * cell
+        at = torch.where(at < 2 ** 31 - 1, at, first)
+        cv = torch.full((ncy, ncx), -1.0)
+        ci = torch.full((ncy, ncx), -1, dtype=torch.int32)
+        cv[cy[real], cx[real]] = best[real]
+        ci[cy[real], cx[real]] = at[real].to(torch.int32)
+        out.append((cv, ci))
+    return out
+
+
+def _small_layouts():
+    """chip_smoke.py's three K4 layouts at a small size: K1's flat
+    pyramid and K7's packed pyramid of a 600x640 strip frame (4 levels),
+    and K7's of a 240x320 one; (label, packed, offs, shapes)."""
+    from chip_smoke import render_strip
+    fr = render_strip(1, 600, 640, 600.0, 0.24, 1024, "cpu")[0][0]
+    gray = tim.rgb_to_gray(fr.to(torch.float32))
+    p = torb.OrbParams(n_features=256, n_levels=4)
+    plan = torb._flat_plan(600, 640, 4, p.scale_factor, p.cell)
+    flat = tfp.build_flat_pyramid_plain(gray, 4, p.scale_factor, p.cell)
+    r = torb._GATHER_R
+    out = [("K1 600x640", flat, [(plan.pad_left, b + plan.cell)
+                                 for b in plan.bases], plan.shapes)]
+    for h, w in ((600, 640), (240, 320)):
+        g = gray[:h, :w].contiguous()
+        pl7 = tpp.pyramid_plan(h, w, 4, p.scale_factor, r)
+        out.append((f"K7 {h}x{w}", tpp.build_packed_pyramid_plain(
+            g, 4, p.scale_factor, r), [(r, b + r) for b in pl7.bases],
+            pl7.shapes))
+    return out
+
+
+def test_fastselect_candidates_compute_the_plain_version(torch_one_thread):
+    p = torb.OrbParams(n_features=256, n_levels=4)
+    for label, packed, offs, shapes in _small_layouts():
+        for thr in (p.min_threshold, 0.0):
+            got = _emulate_fastselect(packed, offs, shapes, p.cell, thr,
+                                      torb.EDGE_THRESHOLD)
+            ref = tfs.fast_cell_winners_plain(
+                [packed[oy:oy + lh, ox:ox + lw]
+                 for (lh, lw), (ox, oy) in zip(shapes, offs)],
+                p.cell, thr, torb.EDGE_THRESHOLD)
+            for (cv, ci), (rv, ri) in zip(got, ref):
+                assert torch.equal(cv, rv) and torch.equal(ci, ri), label
+            assert sum(int((rv > 0).sum()) for rv, _ in ref) > 100
+
+
+def test_fastselect_plan_runs_fit_the_block():
+    for cell in (8, 16, 32, 64, 120):
+        run = tfs.block_run(cell)
+        assert run in (1, 2, 4) and run * cell + 2 <= 256
+        assert tfs.smem_bytes(cell, run) <= tfs._SMEM_MAX
+        plan = tfs.winner_plan(((200, 300), (90, 120)), ((0, 0), (0, 210)),
+                               cell)
+        # every cell of every level belongs to exactly one block's run
+        seen = set()
+        for lvl, cy, cx0 in plan.blocks.tolist():
+            for q in range(run):
+                if cx0 + q < plan.grids[lvl][1]:
+                    assert (lvl, cy, cx0 + q) not in seen
+                    seen.add((lvl, cy, cx0 + q))
+        assert len(seen) == plan.n_cells
+    assert tfs.block_run(32) == 4
+    with pytest.raises(ValueError):
+        tfs.winner_plan(((64, 64),), ((0, 0),), 256)
 
 
 @pytest.mark.parametrize("h, w, levels", [
