@@ -18,7 +18,10 @@ It builds the port's CUDA kernels from `pislamfusion_tpu_torch/csrc/`
    at the f32 min/max and add rates measured on the card, and the card's
    clocks sampled before and after; K3 at FastVO's half resolution and at
    the Map2D engine's full resolution, each also transposed (the map
-   turned 100 degrees), all four timed beside their bounds;
+   turned 100 degrees), all four timed beside their bounds; K7 in one
+   launch a call, also on the small strip's 600x640 pyramid and from a
+   CUDA graph of two calls replayed twice, with its plan line; K2 also
+   on centres at the buffer's corners and edges;
    K6 on SIFT's orientation and descriptor grids; K8 at the Map2D
    patch's pyrDown and pyrUp, its weight chain, the canvas pyrUp of
    `blended()`, FastVO's half-res pyramid, its 1080p source pyrDown and
@@ -27,8 +30,8 @@ It builds the port's CUDA kernels from `pislamfusion_tpu_torch/csrc/`
    kernel, its plain version and one library call that computes the same
    function where there is one (each the device time of a call, from 20
    calls captured in one CUDA graph), beside its bound (K5 at each of its
-   three octaves, beside the multiply-adds its plan does); K1, K5's
-   octave 0, K8's 1536^2x3 pyrDown and 1080p source pyrDown and K6's
+   three octaves, beside the multiply-adds its plan does); K1, K2, K5's
+   octave 0, K7, K8's 1536^2x3 pyrDown and 1080p source pyrDown and K6's
    orientation grid also with a cold L2 (a 128 MB write before each call,
    its own time subtracted);
 2. drives the FastVO paths through `FastVO.process` at 1920x1080 over 24
@@ -457,22 +460,14 @@ def check_fastselect(cases, params, flush, rates):
     return row
 
 
-def check_packedpyr(gray, params, r):
-    """K7 at the main path's shape: kernel vs plain on the whole buffer,
-    every level's (lh + 2r, lw + 2r) block and the zeros around them
-    (equal: both sum each pixel's taps as one chain of fused
-    multiply-adds), timed with its bound."""
+def k7_agrees(ker, img, L, sf, r):
+    """(K7's buffer equals the plain version's, zeros outside the blocks;
+    max |kernel - plain| per level block; the plain buffer)."""
     import torch
     from pislamfusion_tpu_torch.ops.features import packedpyr as pp
-    H, W = gray.shape
-    L, sf = params.n_levels, params.scale_factor
-    if not pp.pyramid_available(H, W, L, sf, r):
-        raise AssertionError(f"K7 does not take {H}x{W} / {L} levels")
-    ker = pp.build_packed_pyramid(gray, L, sf, r)
-    pln = pp.build_packed_pyramid_plain(gray, L, sf, r)
+    pln = pp.build_packed_pyramid_plain(img, L, sf, r)
     torch.cuda.synchronize()
-    t = pp.packed_tables(H, W, L, sf, r)
-    plan = t.plan
+    plan = pp.pyramid_plan(img.shape[0], img.shape[1], L, sf, r)
     errs = []
     live = torch.zeros(ker.shape, dtype=torch.bool, device=ker.device)
     for lvl, (lh, lw) in enumerate(plan.shapes):
@@ -481,17 +476,89 @@ def check_packedpyr(gray, params, r):
         errs.append(float((ker[b:b + lh + 2 * r, :lw + 2 * r]
                            - pln[b:b + lh + 2 * r, :lw + 2 * r])
                           .abs().max()))
-    exact = bool(torch.equal(ker, pln))
+    return (bool(torch.equal(ker, pln)) and not bool(ker[~live].any()),
+            errs, pln)
+
+
+def check_packedpyr(gray, params, r, flush):
+    """K7 at the main path's shape: one launch a call; kernel vs plain on
+    the whole buffer, every level's (lh + 2r, lw + 2r) block and the zeros
+    around them (equal: both sum each pixel's taps as one chain of fused
+    multiply-adds), also from a CUDA graph of two calls replayed twice
+    (the kernel's counters must be back at 0 after each call); timed
+    warm and cold with its bound."""
+    import torch
+    from pislamfusion_tpu_torch.ops import image as im
+    from pislamfusion_tpu_torch.ops.features import packedpyr as pp
+    H, W = gray.shape
+    L, sf = params.n_levels, params.scale_factor
+    if not pp.pyramid_available(H, W, L, sf, r):
+        raise AssertionError(f"K7 does not take {H}x{W} / {L} levels")
+    n0 = pp.build_packed_pyramid.launches
+    ker = pp.build_packed_pyramid(gray, L, sf, r)
+    n1 = pp.build_packed_pyramid.launches
+    kp = pp.kernel_plan(H, W, L, sf, r)
+    d = pp._device_plan(H, W, L, sf, r, str(gray.device))
+    kinds = np.bincount(kp.records[:, 0], minlength=3)
+    deep = min(pp.K7_FUSE_FROM, L)
+    print(f"K7 plan: {kp.tile[0]}x{kp.tile[1]} tiles of depth 1 (levels "
+          f"1-{deep - 1}), {kp.fused[0]}x{kp.fused[1]} of depth 2 (levels "
+          f"{deep}-{L - 1}), {kinds[2]} tiles, {kinds[1]} pad and "
+          f"{kinds[0]} zero items, {kp.n_counters} counters, {kp.smem} "
+          f"bytes of shared memory a block, "
+          f"{pp.occupancy(kp, gray.device)} resident blocks an SM "
+          f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor), grid "
+          f"{d['grid']}; launches a call {n1 - n0}")
+    if n1 - n0 != 1:
+        raise AssertionError(f"K7 launched {n1 - n0} times in one call")
+    t = pp.packed_tables(H, W, L, sf, r)
+    plan = t.plan
+    ok, errs, pln = k7_agrees(ker, gray, L, sf, r)
     err = max(errs)
     print(f"K7 packedpyr {H}x{W} L={L} r={r}: packed {tuple(ker.shape)}, "
           f"max |kernel - plain| per level block "
-          f"{', '.join(f'{e:.3e}' for e in errs)}; whole buffer equal "
-          f"{exact} (bound: equal, zeros outside the blocks)")
-    if not (exact and not bool(ker[~live].any())):
+          f"{', '.join(f'{e:.3e}' for e in errs)}; whole buffer equal, "
+          f"zeros outside the blocks: {ok} (bound: equal)")
+    # the small strip's frame 0 (600x640, 4 levels; phase 3's input)
+    fr_s, _ = render_strip(1, 600, 640, 600.0, 0.24, 1024, gray.device)
+    g_s = im.rgb_to_gray(fr_s[0].to(torch.float32))
+    ok_s, errs_s, _ = k7_agrees(pp.build_packed_pyramid(g_s, 4, sf, r), g_s,
+                                4, sf, r)
+    print(f"K7 packedpyr 600x640 L=4 r={r}: max |kernel - plain| per level "
+          f"block {', '.join(f'{e:.3e}' for e in errs_s)}; whole buffer "
+          f"equal, zeros outside the blocks: {ok_s}")
+    if not (ok and ok_s):
         raise AssertionError("K7 disagrees with its plain version")
+    # two calls captured in one graph, replayed twice, the outputs filled
+    # with NaN between the replays: each replay must compute them again
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pp.build_packed_pyramid(gray, L, sf, r)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        outs = [pp.build_packed_pyramid(gray, L, sf, r) for _ in range(2)]
+    replays = []
+    for _ in range(2):
+        for o in outs:
+            o.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(all(bool(torch.equal(o, pln)) for o in outs))
+    zeroed = not bool(d["counters"].any())
+    print(f"K7 graph of 2 calls, replayed twice: equal {replays}, "
+          f"counters back at 0 {zeroed}")
+    if not (all(replays) and zeroed):
+        raise AssertionError("K7 from a replayed graph disagrees with its "
+                             "plain version")
+    del graph, outs
+    kernel = lambda: pp.build_packed_pyramid(gray, L, sf, r)  # noqa: E731
     ms, plain, _ = timed(
-        "K7", lambda: pp.build_packed_pyramid(gray, L, sf, r),
-        lambda: pp.build_packed_pyramid_plain(gray, L, sf, r))
+        "K7", kernel, lambda: pp.build_packed_pyramid_plain(gray, L, sf, r))
+    print(f"  K7 cold L2: kernel {graph_ms_cold(kernel, flush):.4f} ms (a "
+          f"{FLUSH_BYTES >> 20} MB write before each call, its own time "
+          "subtracted)")
     tabs = sum(a.nbytes for f in ("row_start", "row_len", "row_w",
                                   "col_start", "col_len", "col_w")
                for a in getattr(t, f))
@@ -500,35 +567,56 @@ def check_packedpyr(gray, params, r):
                     for rl, cl in zip(t.row_len, t.col_len))
     bound = bound_ms(nbytes, ops, FP32_OPS_PER_S)
     print(f"  K7 work: {nbytes / 1e6:.2f} MB, {ops / 1e9:.4f} GFLOP; bound "
-          f"{bound[0]:.5f} ms ({bound[1]}); {L - 1} launches a call")
+          f"{bound[0]:.5f} ms ({bound[1]}); 1 launch a call")
     return ker, _row("packedpyr", "pislamfusion_tpu_torch/csrc/packedpyr.cu",
                      "pislamfusion_tpu/ops/features/pyramid_pallas.py:279",
                      err, ms, plain, bound, None)
 
 
-def check_patchgather(packed, pxy, radius):
+def edge_centers(H: int, W: int, device):
+    """Centres on the four corners and the four edge midpoints of an
+    [H, W] image: every patch around them is clamped."""
+    import torch
+    return torch.tensor([[0, 0], [W - 1, 0], [0, H - 1], [W - 1, H - 1],
+                         [W // 2, 0], [W // 2, H - 1], [0, H // 2],
+                         [W - 1, H // 2]], dtype=torch.int32, device=device)
+
+
+def check_patchgather(packed, pxy, radius, flush):
+    """K2 on the path's centres and on centres at the buffer's corners and
+    edges, bit-exact; timed warm and cold beside one `aten::index` call
+    on the two clamped index vectors (built outside the timed calls)."""
     import torch
     from pislamfusion_tpu_torch.ops.features import patchgather as pg
     ker = pg.gather_patches(packed, pxy, radius)
     pln = pg.gather_patches_plain(packed, pxy, radius)
+    edge = edge_centers(packed.shape[0], packed.shape[1], packed.device)
+    ker_e = pg.gather_patches(packed, edge, radius)
+    pln_e = pg.gather_patches_plain(packed, edge, radius)
     torch.cuda.synchronize()
     exact = bool(torch.equal(ker, pln))
+    exact_e = bool(torch.equal(ker_e, pln_e))
     err = float((ker - pln).abs().max())
     print(f"K2 patchgather {pxy.shape[0]} centers r={radius} from "
-          f"{tuple(packed.shape)}: bit-exact {exact}, max diff {err:.3e} "
-          "(bound: exact)")
-    if not exact:
+          f"{tuple(packed.shape)}: bit-exact {exact}, max diff {err:.3e}; "
+          f"{edge.shape[0]} centres on the corners and edges (clamped): "
+          f"bit-exact {exact_e} (bound: exact)")
+    if not (exact and exact_e):
         raise AssertionError("K2 disagrees with its plain version")
-    ms, plain, _ = timed(
-        "K2", lambda: pg.gather_patches(packed, pxy, radius),
-        lambda: pg.gather_patches_plain(packed, pxy, radius))
-    # bytes: the distinct source pixels the patches cover, the centers,
-    # and the patches
     G = 2 * radius + 1
     ar = torch.arange(G, device=packed.device)
     xy = pxy.to(torch.int64)
     iy = (xy[:, 1:2] - radius + ar).clamp(0, packed.shape[0] - 1)
     ix = (xy[:, 0:1] - radius + ar).clamp(0, packed.shape[1] - 1)
+    kernel = lambda: pg.gather_patches(packed, pxy, radius)  # noqa: E731
+    ms, plain, library = timed(
+        "K2", kernel, lambda: pg.gather_patches_plain(packed, pxy, radius),
+        lambda: packed[iy[:, :, None], ix[:, None, :]])
+    print(f"  K2 cold L2: kernel {graph_ms_cold(kernel, flush):.4f} ms (a "
+          f"{FLUSH_BYTES >> 20} MB write before each call, its own time "
+          "subtracted)")
+    # bytes: the distinct source pixels the patches cover, the centers,
+    # and the patches
     touched = torch.zeros(packed.shape, dtype=torch.bool,
                           device=packed.device)
     touched[iy[:, :, None], ix[:, None, :]] = True
@@ -536,7 +624,7 @@ def check_patchgather(packed, pxy, radius):
               + ker.numel() * 4)
     return _row("patchgather", "pislamfusion_tpu_torch/csrc/patchgather.cu",
                 "pislamfusion_tpu/ops/features/patchgather.py:148", err, ms,
-                plain, bound_ms(nbytes, 0.0, FP32_OPS_PER_S), None)
+                plain, bound_ms(nbytes, 0.0, FP32_OPS_PER_S), library)
 
 
 def k3_cases(frames, poses, fx, device):
@@ -1004,13 +1092,13 @@ def main() -> int:
     pxy = torch.cat([xy + torch.tensor(
         [[plan.pad_left, b + plan.cell]], dtype=torch.int32, device=dev)
         for (xy, _, _), b in zip(picks, plan.bases)])
-    k2 = check_patchgather(packed, pxy, orb._GATHER_R)
+    k2 = check_patchgather(packed, pxy, orb._GATHER_R, flush)
     # K7 at 1080p; K4 on K1's and K7's 1080p pyramids (the same level
     # shapes at other pitches and offsets), on K7's pyramid of the small
     # strip's frame 0 (600x640, 4 levels) and on the noise frame's K1
     # pyramid, its bound at the f32 rates measured here
     r = orb._GATHER_R
-    packed7, k7 = check_packedpyr(gray, params, r)
+    packed7, k7 = check_packedpyr(gray, params, r, flush)
     del packed7
     sys.path.insert(0, os.path.join(os.path.dirname(
         os.path.abspath(__file__)), "scripts"))

@@ -18,13 +18,21 @@ which nothing reads).
 
 On the H100 the function is bound by bytes: at 1080p with 8 levels and
 r = 21 it reads an 8.3 MB image and writes a 48.2 MB buffer (>= 17 us at
-3.35 TB/s), against ~4 multiply-adds an output pixel. The TPU kernel runs
-dense 128x384 band blocks through the matrix unit; the matrices have at
-most two nonzeros a row, so the CUDA kernel (`csrc/packedpyr.cu`) gives
-each output pixel one thread that sums its row taps, then its column
-taps, from host tables of each row's nonzero span (the float64 matrices
-cast to float32, as the reference's `_tables` casts them), one launch a
-level since level l reads level l-1.
+3.35 TB/s), 42 % of it the zeros around the blocks, against ~4
+multiply-adds an output pixel. The TPU kernel runs dense 128x384 band
+blocks through the matrix unit, a grid step a level; the matrices have at
+most two nonzeros a row, so the CUDA kernel (`csrc/packedpyr.cu`) walks
+host tables of each row's nonzero span (the float64 matrices cast to
+float32, as the reference's `_tables` casts them). One launch writes the
+whole buffer (`kernel_plan`): a persistent grid claims, in the plan's
+order, level tiles (a band of output rows by a run of columns: the
+source window and span tables staged in shared memory, each row-pass
+value t1 computed once there, then the column chains), bands of level
+0's edge pad and rectangles of zeros. A tile waits on counters of the
+tiles whose pixels it reads, so the levels overlap; from level
+K7_FUSE_FROM on, a tile computes the level-(l-1) window it reads from
+level l-2 on the way (depth 2), which shortens the chain of dependent
+levels.
 
 The taps are summed in order as a chain of fused multiply-adds, each
 rounded once: that is how the reference's dense products contract their
@@ -46,6 +54,7 @@ import torch
 
 from ... import _build
 from .. import image as im
+from ..stencil import SM_BLOCK_RESERVED, SM_SMEM, SM_THREADS
 
 _BLK = 128
 _RKL = 384      # the TPU kernel's source window (pyramid_pallas.py:41-46)
@@ -267,11 +276,347 @@ def build_packed_pyramid_plain(img, n_levels: int, scale_factor: float,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the kernel's launch plan
+# ---------------------------------------------------------------------------
+
+K7_THREADS = 256
+K7_BLOCKS = 6                   # resident blocks an SM (csrc BLOCKS)
+K7_SMEM = SM_SMEM // K7_BLOCKS - SM_BLOCK_RESERVED
+K7_TILES = ((8, 256), (8, 128), (4, 128))      # rows x columns, levels 1-2
+K7_FUSED_TILES = ((8, 128), (4, 128))          # levels from K7_FUSE_FROM
+K7_FUSE_FROM = 5                # levels that compute from level l-2
+K7_FILL_BYTES = 32 << 10        # about what a pad or zero item writes
+K7_MAX_LEVELS = 16
+K7_TAPS = 2                     # taps a span holds at most (bilinear)
+K7_RECORD = 20                  # int32 an item: five int4
+KIND_ZERO, KIND_PAD, KIND_TILE = 0, 1, 2
+
+
+@dataclasses.dataclass(frozen=True)
+class K7Plan:
+    """K7's launch plan for one shape.
+
+    records: [n_items, K7_RECORD] int32 in ticket order, five int4 an item:
+      zero   (0, 0, first packed row, rows), (first column, columns, 0, 0)
+      pad    (1, 0, first packed row, rows), (0, columns, 0, 0)
+      tile   (2, level l, first output row t0, rows),
+             (first column u0, columns, raw column sc0, columns sc),
+             (raw row sr0, rows sr, own counter or 0, depth),
+             (first counter waited on, its bands, its runs, runs a band),
+             (raw row, rows, raw column, columns of level l-2)
+    A tile of depth 1 reads level l-1's raw pixels [sr0, sr0 + sr) x
+    [sc0, sc0 + sc); one of depth 2 computes those in shared memory from
+    level l-2's raw window in its fifth int4 (the same arithmetic as the
+    level-(l-1) tiles, so the same bits) and waits on level l-2's tiles.
+    Columns of pad and zero items are multiples of 4 from a multiple of
+    4; a tile's columns past lw + 2r (up to a multiple of 4) are 0.
+    levels: [K7_MAX_LEVELS, 8] int32, per level l >= 1: first packed row,
+    lh + 2r, lw + 2r, first row in rtab, first column in ctab, packed row
+    and column of level l-1's raw pixel (0, 0).
+    rtab / ctab: [rows / columns, 4] int32, a span's start, length and
+    two weights' bits (0 past the length). counters: 2 + one a tile
+    (ticket, blocks done, then every level's tiles band by band, run by
+    run, from `bands[l - 1]` = (first counter, bands, runs a band, tile
+    rows, tile columns, depth)): a tile counts its own to 1 when it is
+    done, unless no tile waits on its level (own counter 0).
+    tile / fused: the tiles of depth 1 and 2; pitch / pitch_f: the floats
+    a row of their shared buffers (`_buffers`); rows_a: the rows of a
+    depth-2 tile's first buffer; lgcg: log2 of the 128-column groups of
+    the column passes (depth 1, depth 2, the step in between); tables:
+    the float offset of the staged span tables in shared memory and their
+    row entries (the column entries follow)."""
+    tile: tuple
+    fused: tuple
+    pitch: int
+    pitch_f: int
+    rows_a: int
+    lgcg: tuple
+    tables: tuple
+    smem: int
+    levels: np.ndarray
+    rtab: np.ndarray
+    ctab: np.ndarray
+    records: np.ndarray
+    bands: tuple
+    n_counters: int
+
+    @property
+    def blocks_per_sm(self) -> int:
+        return min(SM_THREADS // K7_THREADS,
+                   SM_SMEM // (self.smem + SM_BLOCK_RESERVED))
+
+
+def _span_table(start, length, wts) -> np.ndarray:
+    tab = np.zeros((start.size, 4), np.int32)
+    tab[:, 0], tab[:, 1] = start, length
+    tab[:, 2:2 + wts.shape[1]] = np.ascontiguousarray(wts).view(np.int32)
+    return tab
+
+
+def _fills(kind: int, row0: int, rows: int, col0: int, cols: int):
+    """A rectangle cut by rows into records of about K7_FILL_BYTES."""
+    if rows <= 0 or cols <= 0:
+        return []
+    step = max(1, K7_FILL_BYTES // (4 * cols))
+    return [[kind, 0, row0 + a, min(step, rows - a), col0, cols]
+            + [0] * (K7_RECORD - 6) for a in range(0, rows, step)]
+
+
+def _window(t: PackedTables, l: int, t0: int, nr: int, u0: int, nu: int):
+    """(sr0, sr, sc0, sc): the raw pixels of level l-1 that level l's rows
+    [t0, t0 + nr) and columns [u0, u0 + nu) (those below lw + 2r) read."""
+    rs, rl = t.row_start[l - 1][t0:t0 + nr], t.row_len[l - 1][t0:t0 + nr]
+    cs, cl = t.col_start[l - 1][u0:u0 + nu], t.col_len[l - 1][u0:u0 + nu]
+    sr0, sc0 = int(rs.min()), int(cs.min())
+    return sr0, int((rs + rl).max()) - sr0, sc0, int((cs + cl).max()) - sc0
+
+
+def _level_tiles(t: PackedTables, l: int, tr: int, tc: int, depth: int):
+    """Level l's tr x tc tiles, band by band, run by run: (t0, nr, u0, nu,
+    band, run, level-(l-1) window, level-(l-2) window or None)."""
+    r = t.plan.r
+    lh2 = t.row_start[l - 1].size
+    lwa = _ceil_to(t.col_start[l - 1].size, 4)
+    out = []
+    for b, t0 in enumerate(range(0, lh2, tr)):
+        for c, u0 in enumerate(range(0, lwa, tc)):
+            nr, nu = min(tr, lh2 - t0), min(tc, lwa - u0)
+            win = _window(t, l, t0, nr, u0, nu)
+            inner = (_window(t, l - 1, win[0] + r, win[1], win[2] + r,
+                             win[3]) if depth == 2 else None)
+            out.append((t0, nr, u0, nu, b, c, win, inner))
+    return out
+
+
+def _ticket_order(tiles: list, fills: list) -> list:
+    """The items in ticket order: the level tiles level by level (so every
+    tile comes after the tiles it waits on), the pad and zero items, which
+    wait on nothing, spread evenly among them, where they fill the slots
+    that the chain's tiles cannot use yet."""
+    order = list(tiles)
+    step = len(tiles) / max(len(fills), 1)
+    for i, f in enumerate(fills):
+        order.insert(int(i * step) + i, f)
+    return order
+
+
+def _buffers(xs: list, depth: int, tr: int):
+    """(pitch, rows, rows) of the two shared buffers that the tiles xs
+    (`_level_tiles`) of a depth and tr rows need: at depth 1 t1, then the
+    staged window; at depth 2 A (level l-2's window, then level l-1's)
+    and t1 (each step's row pass). (0, 0, 0) for no tiles."""
+    if not xs:
+        return 0, 0, 0
+    if depth == 1:
+        return (max(_ceil_to(3 + x[6][3], 4) for x in xs), tr,
+                max(x[6][1] for x in xs))
+    return (max(max(_ceil_to(3 + x[7][3], 4), _ceil_to(x[6][3], 4))
+                for x in xs),
+            max(max(x[7][1], x[6][1]) for x in xs),
+            max(max(x[6][1], x[1]) for x in xs))
+
+
+def _lg(n: int) -> int:
+    """log2 of the 128-column groups a column pass of n columns takes."""
+    return max(0, (-(-n // 128) - 1).bit_length())
+
+
+@functools.lru_cache(maxsize=16)
+def kernel_plan(h: int, w: int, n_levels: int, scale_factor: float,
+                r: int) -> K7Plan:
+    """K7's launch plan for a shape that `pyramid_available` accepts:
+    levels 1 to K7_FUSE_FROM - 1 in tiles of depth 1, the rest of depth 2
+    (each kind the largest tile of its list whose shared memory keeps
+    K7_BLOCKS blocks an SM), the pad and zero items, the span tables and
+    the items' ticket order (`_ticket_order`). Raises ValueError where the
+    kernel cannot take the shape (none that pyramid_available accepts)."""
+    t = packed_tables(h, w, n_levels, scale_factor, r)
+    if t is None:
+        raise ValueError(f"build_packed_pyramid: {h}x{w} with {n_levels} "
+                         "levels is outside the kernel's regime")
+    plan = t.plan
+    if n_levels > K7_MAX_LEVELS:
+        raise ValueError(f"build_packed_pyramid: the kernel takes at most "
+                         f"{K7_MAX_LEVELS} levels, not {n_levels}")
+    lens = np.concatenate(t.row_len + t.col_len)
+    if lens.min() < 1 or lens.max() > K7_TAPS:
+        raise ValueError("build_packed_pyramid: a span of "
+                         f"{lens.min()}-{lens.max()} taps")
+    deep = range(max(2, K7_FUSE_FROM), n_levels)
+
+    def cut(lvls, tiles_, depth):
+        """The largest tile of tiles_ whose shared memory keeps K7_BLOCKS
+        blocks an SM, the levels' tiles cut with it and their buffers."""
+        for tr, tc in tiles_:
+            cut_ = {l: _level_tiles(t, l, tr, tc, depth) for l in lvls}
+            buf = _buffers([x for tl in cut_.values() for x in tl], depth,
+                           tr)
+            if 4 * buf[0] * (buf[1] + buf[2]) <= K7_SMEM:
+                return (tr, tc), cut_, buf
+        raise ValueError("build_packed_pyramid: no tile fits "
+                         f"{K7_SMEM} bytes of shared memory")
+
+    tile, plain, (pitch, _, _) = cut(range(1, min(K7_FUSE_FROM, n_levels)),
+                                     K7_TILES, 1)
+    fused, deep_cut, (pitch_f, rows_a, _) = cut(deep, K7_FUSED_TILES, 2)
+    cuts = {**plain, **deep_cut}
+    xs = [x for tl in deep_cut.values() for x in tl]
+    lgcg = (_lg(tile[1]), _lg(fused[1]),
+            max((_lg(x[6][3]) for x in xs), default=0))
+    # the staged span tables after the buffers: a tile's rows and columns
+    # (and at depth 2 its level-(l-1) window's), 16 bytes each
+    tab_off = max(4 * b[0] * (b[1] + b[2]) for b in (
+        _buffers([x for tl in plain.values() for x in tl], 1, tile[0]),
+        _buffers(xs, 2, fused[0])))
+    tab_rows = max([tile[0]] + [x[1] + x[6][1] for x in xs])
+    tab_cols = max([tile[1]] + [x[3] + x[6][3] for x in xs])
+    smem = tab_off + 16 * (tab_rows + tab_cols)
+    # one counter a tile, level by level, band by band, run by run, from 2
+    bands, first = [], 2
+    for l in range(1, n_levels):
+        tl = cuts[l]
+        nb, runs = tl[-1][4] + 1, tl[-1][5] + 1
+        tr, tc = tile if l < K7_FUSE_FROM else fused
+        bands.append((first, nb, runs, tr, tc, 1 if l < K7_FUSE_FROM else 2))
+        first += len(tl)
+    # the levels whose tiles some tile waits on: the rest publish nothing
+    read = {l - (1 if l < K7_FUSE_FROM else 2) for l in range(2, n_levels)}
+    items = []
+    for l in range(1, n_levels):
+        own, _, runs, _, _, depth = bands[l - 1]
+        for j, (t0, nr, u0, nu, b, c, win, inner) in enumerate(cuts[l]):
+            rec = [KIND_TILE, l, t0, nr, u0, nu, win[2], win[3], win[0],
+                   win[1], own + j if l in read else 0, depth] + [0] * 8
+            src, lsrc = (inner, l - 2) if depth == 2 else (win, l - 1)
+            if depth == 2:
+                rec[16:20] = inner
+            if lsrc >= 1:   # the tiles of level lsrc whose pixels it reads
+                pf, _, pruns, ptr, ptc, _ = bands[lsrc - 1]
+                lo, hi = (src[0] + r) // ptr, (src[0] + src[1] - 1 + r) // ptr
+                clo = (src[2] + r) // ptc
+                chi = (src[2] + src[3] - 1 + r) // ptc
+                rec[12:16] = (pf + lo * pruns + clo, hi - lo + 1,
+                              chi - clo + 1, pruns)
+            items.append(rec)
+    wpl, bases, blk = plan.wpl, plan.bases, plan.blk_rows
+    lwa = [_ceil_to(lw + 2 * r, 4) for _, lw in plan.shapes]
+    lh2 = [lh + 2 * r for lh, _ in plan.shapes]
+    fills = _fills(KIND_PAD, 0, lh2[0], 0, lwa[0])
+    for l in range(n_levels):
+        fills += _fills(KIND_ZERO, bases[l], lh2[l], lwa[l], wpl - lwa[l])
+        fills += _fills(KIND_ZERO, bases[l] + lh2[l], blk[l] - lh2[l], 0,
+                        wpl)
+    end = bases[-1] + blk[-1]
+    fills += _fills(KIND_ZERO, end, plan.total_rows - end, 0, wpl)
+    records = np.asarray(_ticket_order(items, fills), np.int32)
+    levels = np.zeros((K7_MAX_LEVELS, 8), np.int32)
+    rt = ct = 0
+    for l in range(1, n_levels):
+        lh, lw = plan.shapes[l]
+        levels[l] = (bases[l], lh + 2 * r, lw + 2 * r, rt, ct,
+                     bases[l - 1] + r, r, 0)
+        rt += lh + 2 * r
+        ct += lw + 2 * r
+    rtab = np.concatenate([_span_table(*x) for x in zip(
+        t.row_start, t.row_len, t.row_w)])
+    ctab = np.concatenate([_span_table(*x) for x in zip(
+        t.col_start, t.col_len, t.col_w)])
+    return K7Plan(tile, fused, pitch, pitch_f, rows_a, lgcg,
+                  (tab_off // 4, tab_rows), smem, levels, rtab, ctab,
+                  records, tuple(bands), first)
+
+
+@functools.lru_cache(maxsize=8)
+def _device_plan(h, w, n_levels, scale_factor, r, device: str):
+    """The plan's tables and the kernel's counters (zeros), on the device
+    once per shape, and the grid: resident blocks an SM x SMs."""
+    kp = kernel_plan(h, w, n_levels, scale_factor, r)
+    d = {k: torch.from_numpy(np.ascontiguousarray(getattr(kp, k))).to(
+        device) for k in ("rtab", "ctab", "records")}
+    d["counters"] = torch.zeros(kp.n_counters, dtype=torch.int32,
+                                device=device)
+    d["geo"] = np.asarray((kp.tile[0], kp.pitch, kp.pitch_f, kp.rows_a)
+                          + kp.lgcg + kp.tables, np.int32)
+    dev = torch.device(device)
+    d["grid"] = min(kp.records.shape[0], occupancy(kp, dev)
+                    * torch.cuda.get_device_properties(dev)
+                    .multi_processor_count)
+    return d
+
+
+def occupancy(kp: K7Plan, device) -> int:
+    """The kernel's resident blocks an SM on `device` with the plan's
+    shared memory (registers included)."""
+    fn = _build.load("packedpyr").packedpyr_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int]
+    with torch.cuda.device(device):
+        blocks = fn(kp.smem)
+    if blocks < 1:
+        raise RuntimeError(f"packedpyr: no block of {kp.smem} bytes of "
+                           "shared memory fits an SM")
+    return blocks
+
+
+@functools.lru_cache(maxsize=1)
+def _launch_fn():
+    fn = _build.load("packedpyr").packedpyr_launch
+    fn.restype = ctypes.c_int
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P, I, I, I, P, I, I, P, P, P, P, P, I, P, I, I, I, P]
+    return fn
+
+
+# the stream of each device's last call outside a graph capture
+_LAST_STREAM: dict = {}
+
+
+def _order_streams(device) -> None:
+    """The kernel's counters are one buffer a shape and device, so two
+    calls must not run at once. A call on another stream than the last
+    one first waits for that stream. Inside a graph capture nothing is
+    waited for: `torch.cuda.graph` synchronises the device before it
+    captures, and a replay runs on the stream that replays it, which must
+    not run another call of the same shape beside it."""
+    if torch.cuda.is_current_stream_capturing():
+        return
+    cur = torch.cuda.current_stream(device)
+    last = _LAST_STREAM.get(device)
+    if last is not None and last != cur:
+        cur.wait_stream(last)
+    _LAST_STREAM[device] = cur
+
+
+def launch_records(img, out, shape, records) -> None:
+    """Launch the kernel on img [h, w] into the packed buffer `out` for the
+    items of `records` (a device tensor of kernel_plan(...).records rows,
+    in ticket order; all of them for the whole buffer) under `shape` =
+    (n_levels, scale_factor, r). Counts no launch: `build_packed_pyramid`
+    is the wrapper."""
+    h, w = img.shape
+    n_levels, scale_factor, r = shape
+    plan = pyramid_plan(h, w, n_levels, scale_factor, r)
+    kp = kernel_plan(h, w, n_levels, scale_factor, r)
+    d = _device_plan(h, w, n_levels, scale_factor, r, str(img.device))
+    vec1 = int(w % 4 == 0 and img.data_ptr() % 16 == 0)
+    with torch.cuda.device(img.device):
+        _order_streams(img.device)
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        err = _launch_fn()(
+            img.data_ptr(), h, w, vec1, out.data_ptr(), plan.wpl, r,
+            kp.levels.ctypes.data, d["geo"].ctypes.data,
+            d["rtab"].data_ptr(), d["ctab"].data_ptr(), records.data_ptr(),
+            records.shape[0], d["counters"].data_ptr(), kp.n_counters,
+            min(d["grid"], records.shape[0]), kp.smem, stream)
+    _build.check(err, "packedpyr")
+
+
 def build_packed_pyramid(img, n_levels: int, scale_factor: float, r: int):
     """img: [H, W] float32. Returns the packed [plan.total_rows, plan.wpl]
     float32 buffer of `pyramid_plan`. Check pyramid_available first. CPU
-    tensors take the plain version; CUDA tensors launch the kernel once a
-    level l >= 1 (the first launch also writes level 0's block)."""
+    tensors take the plain version; CUDA tensors launch the kernel once
+    (one counter buffer a shape and device: see `_order_streams`)."""
     if img.device.type == "cpu":
         return build_packed_pyramid_plain(img, n_levels, scale_factor, r)
     if img.device.type != "cuda":
@@ -284,42 +629,12 @@ def build_packed_pyramid(img, n_levels: int, scale_factor: float, r: int):
         raise ValueError(f"build_packed_pyramid: {h}x{w} with {n_levels} "
                          "levels is outside the kernel's regime")
     img = img.contiguous()
-    t = packed_tables(h, w, n_levels, scale_factor, r)
-    plan = t.plan
-    tabs = _device_tables(h, w, n_levels, scale_factor, r, str(img.device))
+    plan = pyramid_plan(h, w, n_levels, scale_factor, r)
     out = torch.empty((plan.total_rows, plan.wpl), dtype=torch.float32,
                       device=img.device)
-    lib = _build.load("packedpyr")
-    fn = lib.packedpyr_level
-    fn.restype = ctypes.c_int
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, I, P, P, P, I, P, P, P, I, I, I, I, P, I, I, I, I, I,
-                   I, I, I, P]
-    wpl, fsize = plan.wpl, out.element_size()
-    tail = sum(plan.blk_rows)
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream(img.device).cuda_stream
-        for l, d in enumerate(tabs, 1):
-            lh, lw = plan.shapes[l]
-            if l == 1:
-                src, ld = img.data_ptr(), w
-            else:
-                src = out.data_ptr() + ((plan.bases[l - 1] + r) * wpl
-                                        + r) * fsize
-                ld = wpl
-            err = fn(src, ld, d["row_start"].data_ptr(),
-                     d["row_len"].data_ptr(), d["row_w"].data_ptr(),
-                     d["row_w"].shape[1],
-                     d["col_start"].data_ptr(), d["col_len"].data_ptr(),
-                     d["col_w"].data_ptr(), d["col_w"].shape[1], lh, lw, r,
-                     out.data_ptr(), wpl, plan.bases[l], plan.blk_rows[l],
-                     # the first launch also writes level 0's block and
-                     # the zero rows after the last block
-                     plan.blk_rows[0] if l == 1 else 0, h, w,
-                     tail if l == 1 else plan.total_rows,
-                     plan.total_rows, stream)
-            _build.check(err, "packedpyr")
-            build_packed_pyramid.launches += 1
+    d = _device_plan(h, w, n_levels, scale_factor, r, str(img.device))
+    launch_records(img, out, (n_levels, scale_factor, r), d["records"])
+    build_packed_pyramid.launches += 1
     return out
 
 

@@ -12,10 +12,12 @@ On the H100 the copy is bound by bytes: at the main path's shapes
 (1000 centers, r = 21, C = 1) it moves 7.4 MB out and at most as much in.
 The TPU kernel DMA'd (8, 128)-aligned slabs and cut each patch out with
 two one-hot MXU matmuls, because a TPU gathers on its scalar core; a GPU
-gathers natively, so the kernel (`csrc/patchgather.cu`) is one thread per
-output element: neighbouring threads write neighbouring output words and
-read neighbouring pixels of one patch row (coalesced), and the source
-rows of overlapping patches are shared through L2.
+gathers natively, so the kernel (`csrc/patchgather.cu`) gives each patch
+one block, which reads its centre once. It takes ORB's shape only (r =
+21, C = 1: a compile-time instantiation; the wrapper raises on others,
+which nothing in the port asks for): a warp reads a source row at a time
+into shared memory, and the patch's 1849-word span goes out as 16-byte
+stores between scalar head and tail words (`store_split`).
 
 K6 replaces `bilinear_grid_pallas` (its `pallas_call` at :282), which
 SIFT's orientation and descriptor stages call on the packed gradient
@@ -40,10 +42,20 @@ SIFT's shapes only (C 2, M even); the wrapper raises on others.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ... import _build
+
+
+@functools.lru_cache(maxsize=1)
+def _gather_fn():
+    fn = _build.load("patchgather").patchgather_launch
+    fn.restype = ctypes.c_int
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P, I, I, P, I, P, P]
+    return fn
 
 
 def gather_patches_plain(img, xy, radius: int):
@@ -58,39 +70,49 @@ def gather_patches_plain(img, xy, radius: int):
     return img[iy[:, :, None], ix[:, None, :]]
 
 
+KERNEL_RADIUS = 21       # the kernel's patches: G = 43 (orb._GATHER_R)
+
+
+def store_split(n: int, words: int):
+    """How the kernel stores patch n of `words` floats at ORB's shape, the
+    output being 16-byte aligned: (head, vectors, tail), scalar words
+    before the first 16-byte boundary, 16-byte stores, scalar words
+    after."""
+    head = -(n * words) % 4
+    vec = (words - head) // 4
+    return head, vec, words - head - 4 * vec
+
+
 def gather_patches(img, xy, radius: int):
     """img: [H, W] or [H, W, C] float32; xy: [N, 2] int32 patch centers.
     Returns [N, G, G(, C)] float32 equal to the edge-padded windows
     img[y-r:y+r+1, x-r:x+r+1]. CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel, which takes ORB's shape only (KERNEL_RADIUS,
+    C = 1)."""
     if img.device.type == "cpu":
         return gather_patches_plain(img, xy, radius)
+    if radius != KERNEL_RADIUS or img.ndim != 2:
+        raise ValueError(f"gather_patches: the kernel takes radius "
+                         f"{KERNEL_RADIUS} and one channel (ORB's patches), "
+                         f"not radius {radius}, shape {tuple(img.shape)}")
     if img.device.type != "cuda":
         raise ValueError(f"gather_patches: unsupported device {img.device}")
-    if img.dtype != torch.float32 or img.ndim not in (2, 3):
-        raise ValueError("gather_patches: img must be float32 [H, W(, C)]")
+    if img.dtype != torch.float32:
+        raise ValueError("gather_patches: img must be float32 [H, W]")
     if xy.device != img.device or xy.ndim != 2 or xy.shape[1] != 2:
         raise ValueError("gather_patches: xy must be [N, 2] on img's device")
     img = img.contiguous()
     xy = xy.to(torch.int32).contiguous()
-    H, W = img.shape[0], img.shape[1]
-    C = img.shape[2] if img.ndim == 3 else 1
+    H, W = img.shape
     N = xy.shape[0]
     G = 2 * radius + 1
-    out = torch.empty((N, G, G) + img.shape[2:], dtype=torch.float32,
-                      device=img.device)
+    out = torch.empty((N, G, G), dtype=torch.float32, device=img.device)
     if N == 0:
         return out
-    lib = _build.load("patchgather")
-    fn = lib.patchgather_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = fn(img.data_ptr(), H, W, C, xy.data_ptr(), N, radius,
-                 out.data_ptr(), stream)
+        err = _gather_fn()(img.data_ptr(), H, W, xy.data_ptr(), N,
+                           out.data_ptr(), stream)
     _build.check(err, "patchgather")
     gather_patches.launches += 1
     return out

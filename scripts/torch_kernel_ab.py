@@ -1,5 +1,4 @@
-"""K1, K3, K4, K5, K6 and K8 from one checkout of the port, for kernel
-A/B runs.
+"""K1-K8 from one checkout of the port, for kernel A/B runs.
 
     python3 scripts/torch_kernel_ab.py ROOT [ROOT ...]
 
@@ -29,7 +28,13 @@ kernels and times, on the same seeded inputs at the shapes
   equal to its plain version;
 - K3 (`shearwarp.warp_patch`'s kernel) on its four cases
   (`chip_smoke.k3_cases`: half and full resolution, survey and turned 100
-  degrees), within 1e-3 of its plain version.
+  degrees), within 1e-3 of its plain version;
+- K7 (`packedpyr.build_packed_pyramid`) on the strip frame's gray image,
+  8 levels, r = 21, equal to its plain version;
+- K2 (`patchgather.gather_patches`) on the ~1000 centres that
+  `orb.select_levels` picks on the strip frame's K1 pyramid
+  (`torch_k7_k2_sweep.phase1_inputs`, chip_smoke.py's phase-1 input),
+  bit-exact.
 
 Each time is the device time of one call from 20 captured in one CUDA
 graph, warm (the inputs in L2 from the call before) and cold (a 128 MB
@@ -41,8 +46,8 @@ FastVO paths (`chip_smoke.make_fastvo`, 8 frames of bench.py's 1080p
 strip after a warm-up pass) and the Map2D Type 3 feed
 (`chip_smoke.make_map2d`, the same 8 frames after a warm-up pass) under
 torch.profiler: the device ms a frame of K3, K5, K6 and K8 on SIFT's
-path, of K1, K3 and K4 on ORB's, and of K3 on the Map2D feed, every
-launch summed.
+path, of K1, K2, K3 and K4 on ORB's, of K7 and K2 on ORB's with
+pyramid="packed", and of K3 on the Map2D feed, every launch summed.
 Prints one JSON line a ROOT, in the order given: give the roots as A B B
 A to see the spread beside the difference. Needs a CUDA device.
 """
@@ -100,6 +105,8 @@ def sift_grids(dev, seed: int = 7):
 
 # profiler names of each kernel: the parent's K1 was two kernels
 _MARKS = {"flatpyr": ("flatpyr_kernel", "::row_pass(", "::col_pass("),
+          "patchgather": ("patchgather",),
+          "packedpyr": ("packedpyr_kernel",),
           "bandedstack": ("bandedstack_kernel",),
           "bilineargrid": ("bilineargrid_kernel",),
           "bandedsandwich": ("bandedsandwich_kernel",),
@@ -126,15 +133,15 @@ def _profiled(run, kernels, n: int) -> dict:
     return {name: t / 1e3 / n for name, t in us.items()}
 
 
-def path_ms(dev, detector: str, kernels, n: int = 8) -> dict:
+def path_ms(dev, detector: str, kernels, n: int = 8, **kw) -> dict:
     """The device ms a frame of each of `kernels` on FastVO's path with
-    `detector` over n frames of bench.py's 1080p strip, from
-    torch.profiler, after a warm-up pass."""
+    `detector` (and FastVO keywords `kw`) over n frames of bench.py's
+    1080p strip, from torch.profiler, after a warm-up pass."""
     from chip_smoke import make_fastvo, render_strip
     H, W, fx = 1080, 1920, 1200.0
     frames, poses = render_strip(n, H, W, fx, 0.12, 6144, dev)
     make = lambda: make_fastvo(H, W, fx, poses, 1000, 8, 5, dev,  # noqa
-                               detector)
+                               detector, **kw)
     make().process(frames, poses[0])
     vo = make()
     return _profiled(lambda: vo.process(frames, poses[0]), kernels, n)
@@ -186,6 +193,30 @@ def k4_k3_ms(dev, flush) -> tuple:
                                       sw.TILE, win)
         k3[label] = {"warm": graph_ms(fn), "cold": graph_ms_cold(fn, flush)}
     return k4, k3
+
+
+def k7_k2_ms(dev, flush) -> tuple:
+    """K7's and K2's warm and cold times at chip_smoke.py's phase-1
+    shapes, each checked against its plain version."""
+    import torch
+    from chip_smoke import graph_ms, graph_ms_cold
+    from pislamfusion_tpu_torch.ops.features import orb, packedpyr
+    from pislamfusion_tpu_torch.ops.features import patchgather as pg
+    from torch_k7_k2_sweep import phase1_inputs
+    gray, params, packed, pxy = phase1_inputs(dev)
+    L, sf, r = params.n_levels, params.scale_factor, orb._GATHER_R
+    fn = lambda: packedpyr.build_packed_pyramid(gray, L, sf, r)  # noqa
+    if not torch.equal(fn(), packedpyr.build_packed_pyramid_plain(
+            gray, L, sf, r)):
+        raise AssertionError("K7: kernel != plain")
+    k7 = {"1080x1920 L=8 r=21": {"warm": graph_ms(fn),
+                                 "cold": graph_ms_cold(fn, flush)}}
+    fn = lambda: pg.gather_patches(packed, pxy, r)  # noqa: E731
+    if not torch.equal(fn(), pg.gather_patches_plain(packed, pxy, r)):
+        raise AssertionError("K2: kernel != plain")
+    k2 = {f"{pxy.shape[0]} centres r=21": {
+        "warm": graph_ms(fn), "cold": graph_ms_cold(fn, flush)}}
+    return k7, k2
 
 
 def one(root: str) -> dict:
@@ -263,17 +294,23 @@ def one(root: str) -> dict:
                      "cold": [graph_ms_cold(fn, flush) for _ in range(3)],
                      "grid_sample": graph_ms(lib)}
     k4, k3 = k4_k3_ms(dev, flush)
+    k7, k2 = k7_k2_ms(dev, flush)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     return {"root": root, "card": card, "k1_ms": k1, "k5_ms": k5,
             "k8_ms": k8, "k6_ms": k6, "k4_ms": k4, "k3_ms": k3,
+            "k7_ms": k7, "k2_ms": k2,
             "sift_path_ms_per_frame": path_ms(
                 dev, "sift", ("bandedstack", "bilineargrid",
                               "bandedsandwich", "shearwarp")),
             "orb_path_ms_per_frame": path_ms(
-                dev, "orb", ("flatpyr", "fastselect", "shearwarp")),
+                dev, "orb", ("flatpyr", "fastselect", "shearwarp",
+                             "patchgather")),
+            "orb_packed_path_ms_per_frame": path_ms(
+                dev, "orb", ("packedpyr", "patchgather"),
+                pyramid="packed"),
             "map2d_type3_feed_ms_per_frame": map2d_ms(dev, ("shearwarp",))}
 
 

@@ -9,7 +9,9 @@ within 2 gray of the exact f64 product (the cost of those bf16 roundings);
 its launch plan writes every packed output once, its re-laid span tables
 rebuild the matrices, and the kernel's arithmetic emulated on the plan's
 records meets the card's gate against the plain version, without JAX.
-K2 patch gather: bit-exact. K3 shear warp: equal tile liveness, dead
+K2 patch gather: bit-exact; the kernel's head, 16-byte body and tail
+stores cover each patch word once for every n mod 4, and off the CPU the
+wrapper refuses shapes other than ORB's. K3 shear warp: equal tile liveness, dead
 tiles exactly zero, within 5e-3 gray on live pixels whose source point is
 >= 2 px inside the image (the kernel's "high" bf16 hi/lo split keeps ~16
 mantissa bits of the image; the port computes in f32).
@@ -49,7 +51,11 @@ the window admits; every live strip's rows fit I, and a transposed strip
 within the window's provisioned scale fits its staged segments.
 K7 packed pyramid: the reference's plan, regime and every level's (lh +
 2r, lw + 2r) block equal to the interpreted kernel (both sum the taps as
-one fused multiply-add chain), zeros elsewhere.
+one fused multiply-add chain), zeros elsewhere; its launch plan writes
+every element once, every tile waits on the tiles whose pixels it reads
+and comes after them in ticket order, and its tiles emulated in torch in
+ticket order (t1 once per row and window column, depth-2 tiles through
+their level-(l-1) window) equal the plain version.
 """
 import numpy as np
 import pytest
@@ -272,6 +278,19 @@ def test_patchgather_wrapper_refuses_other_devices():
     with pytest.raises(ValueError):
         tpg.gather_patches(torch.empty((64, 64), device="meta"),
                            torch.zeros((3, 2), dtype=torch.int32), 21)
+
+
+@pytest.mark.parametrize("shape, radius", [((64, 64), 20), ((64, 64, 2), 21),
+                                           ((64, 64, 1), 21)])
+def test_patchgather_kernel_refuses_other_shapes(shape, radius):
+    """The kernel takes ORB's patches only (radius 21, one channel, [H, W]);
+    off the CPU the wrapper raises on others before it looks at the
+    device. On the CPU the plain version takes every shape."""
+    xy = torch.zeros((3, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="radius"):
+        tpg.gather_patches(torch.empty(shape, device="meta"), xy, radius)
+    got = tpg.gather_patches(torch.zeros(shape), xy, radius)
+    assert got.shape == (3, 2 * radius + 1, 2 * radius + 1) + shape[2:]
 
 
 def _smooth_src(seed):
@@ -1231,3 +1250,218 @@ def test_packedpyr_wrapper_refuses_other_devices():
     with pytest.raises(ValueError):
         tpp.build_packed_pyramid(torch.empty((240, 320), device="meta"), 4,
                                  1.2, 21)
+
+
+_K7_SHAPES = [(240, 320, 4), (100, 120, 4), (600, 640, 4), (1080, 1920, 8),
+              (480, 640, 8), (600, 640, 1)]
+
+
+def _k7_plan(h, w, levels):
+    """K7's launch plan at 1.2 / r = 21, or None where the reference has
+    no plan; there kernel_plan raises."""
+    if not tpp.pyramid_available(h, w, levels, 1.2, 21):
+        with pytest.raises(ValueError):
+            tpp.kernel_plan(h, w, levels, 1.2, 21)
+        return None
+    return tpp.kernel_plan(h, w, levels, 1.2, 21)
+
+
+@pytest.mark.parametrize("h, w, levels", _K7_SHAPES)
+def test_packedpyr_plan_writes_every_element_once(h, w, levels):
+    """K7's items write every element of the [total_rows, wpl] buffer
+    exactly once: level tiles inside their level's block (their columns
+    past lw + 2r at most to the next multiple of 4), pad and zero items
+    on 16-byte columns; the shared memory keeps K7_BLOCKS blocks an SM."""
+    kp = _k7_plan(h, w, levels)
+    if kp is None:
+        return
+    plan = tpp.pyramid_plan(h, w, levels, 1.2, 21)
+    r = plan.r
+    assert kp.smem <= tpp.K7_SMEM and kp.blocks_per_sm >= tpp.K7_BLOCKS
+    hits = np.zeros((plan.total_rows, plan.wpl), np.int32)
+    for rec in kp.records:
+        kind, lvl, a, n, c0, nc = rec[:6]
+        if kind == tpp.KIND_TILE:
+            base, lh2, lw2 = kp.levels[lvl][:3]
+            tr, tc = kp.tile if rec[11] == 1 else kp.fused
+            assert a + n <= lh2 and c0 + nc <= -(-lw2 // 4) * 4
+            assert n <= tr and nc <= tc
+            assert rec[11] == (1 if lvl < tpp.K7_FUSE_FROM else 2)
+            hits[base + a:base + a + n, c0:c0 + nc] += 1
+        else:
+            assert c0 % 4 == 0 and nc % 4 == 0 and c0 + nc <= plan.wpl
+            assert kind == tpp.KIND_ZERO or (c0 == 0 and a + n <= h + 2 * r)
+            hits[a:a + n, c0:c0 + nc] += 1
+    np.testing.assert_array_equal(hits, 1)
+
+
+def _covers(t, lvl, t0, nr, u0, nu, win):
+    """Whether the raw window (sr0, sr, sc0, sc) of level lvl-1 holds the
+    spans of level lvl's rows [t0, t0 + nr) and columns [u0, u0 + nu)
+    (those below lw + 2r); and the (rows, columns) of level lvl-1's block
+    that those spans read."""
+    r = t.plan.r
+    rs = t.row_start[lvl - 1][t0:t0 + nr]
+    rl = t.row_len[lvl - 1][t0:t0 + nr]
+    cs = t.col_start[lvl - 1][u0:u0 + nu]
+    cl = t.col_len[lvl - 1][u0:u0 + nu]
+    sr0, sr, sc0, sc = win
+    ok = (sr0 <= rs.min() and (rs + rl).max() <= sr0 + sr
+          and sc0 <= cs.min() and (cs + cl).max() <= sc0 + sc)
+    rows = {y + r for s, n in zip(rs, rl) for y in range(s, s + n)}
+    cols = {x + r for s, n in zip(cs, cl) for x in range(s, s + n)}
+    return ok, rows, cols
+
+
+@pytest.mark.parametrize("h, w, levels", _K7_SHAPES)
+def test_packedpyr_tiles_wait_on_the_tiles_they_read(h, w, levels):
+    """A level-l tile of depth 1 waits on the counter of every level-(l-1)
+    tile (band, run) whose output rows and columns its row and column
+    spans read (row_start, row_len; col_start, col_len, shifted by r into
+    the block), and its window holds those spans. One of depth 2 computes
+    its window of level l-1 in shared memory from level l-2's window in
+    its fifth int4, which holds the spans of that window's rows and
+    columns, and waits on the level-(l-2) tiles those read. Level-1 tiles
+    wait on nothing. Every tile of a level that some tile reads counts a
+    counter of its own (the others 0), and in ticket order every tile
+    comes after the tiles it waits on."""
+    kp = _k7_plan(h, w, levels)
+    if kp is None:
+        return
+    t = tpp.packed_tables(h, w, levels, 1.2, 21)
+    r = t.plan.r
+    done = set()                     # counters of the tiles so far
+    for rec in kp.records:
+        if rec[0] != tpp.KIND_TILE:
+            continue
+        _, lvl, t0, nr, u0, nu, sc0, sc, sr0, sr, own, depth = rec[:12]
+        first, nb, nrun, stride = rec[12:16]
+        ok, rows, cols = _covers(t, lvl, t0, nr, u0, nu, (sr0, sr, sc0, sc))
+        assert ok
+        if depth == 2:
+            ok, rows, cols = _covers(t, lvl - 1, sr0 + r, sr, sc0 + r, sc,
+                                     rec[16:20])
+            assert ok
+        b_first, bands, runs, tr, tc, d = kp.bands[lvl - 1]
+        mine = b_first + (t0 // tr) * runs + u0 // tc
+        waited = any(k - kp.bands[k - 1][5] == lvl
+                     for k in range(lvl + 1, levels))
+        assert d == depth and own == (mine if waited else 0)
+        src = lvl - depth                # the level whose pixels it reads
+        if src == 0:
+            assert nb * nrun == 0
+        else:
+            p_first, _, p_runs, ptr, ptc, _ = kp.bands[src - 1]
+            read = {p_first + (y // ptr) * p_runs + x // ptc
+                    for y in rows for x in cols}
+            waits = {first + b * stride + c for b in range(nb)
+                     for c in range(nrun)}
+            assert stride == p_runs and read <= waits <= done
+        assert mine not in done
+        done.add(mine)
+    assert done == set(range(2, kp.n_counters))
+
+
+def _k7_step(out, img, kp, lvl, t0, nr, u0, nu, win, stage):
+    """One pass of a K7 tile in torch: level lvl's rows [t0, t0 + nr) and
+    columns [u0, u0 + nu) from `stage`, the raw window win = (sr0, sr,
+    sc0, sc) of level lvl-1: t1 once per (row, window column) as the chain
+    fma(w1, s1, fma(w0, s0, 0)) with packedpyr._fma, then each column's
+    chain from t1 (0 past lw + 2r)."""
+    f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(  # noqa
+        np.float32))
+    sr0, sr, sc0, sc = (int(v) for v in win)
+    _, lh2, lw2, rt, ct = (int(v) for v in kp.levels[lvl][:5])
+    rows = kp.rtab[rt + t0:rt + t0 + nr]
+    k0 = torch.from_numpy(rows[:, 0] - sr0).long()
+    k1 = k0 + torch.from_numpy((rows[:, 1] > 1).astype(np.int64))
+    w0, w1 = f32(rows[:, 2])[:, None], f32(rows[:, 3])[:, None]
+    t1 = tpp._fma(w1, stage[k1], tpp._fma(w0, stage[k0], torch.zeros(nr,
+                                                                    sc)))
+    live = min(nu, lw2 - u0)
+    cols = kp.ctab[ct + u0:ct + u0 + live]
+    j0 = torch.from_numpy(cols[:, 0] - sc0).long()
+    j1 = j0 + torch.from_numpy((cols[:, 1] > 1).astype(np.int64))
+    v = tpp._fma(f32(cols[:, 3])[None, :], t1[:, j1],
+                 tpp._fma(f32(cols[:, 2])[None, :], t1[:, j0],
+                          torch.zeros(nr, live)))
+    return torch.cat([v, torch.zeros(nr, nu - live)], 1)
+
+
+def _k7_source(out, img, kp, lvl, win):
+    """The raw window win of level lvl-1, from the image or the buffer
+    (which must already hold it: the buffer starts as NaN)."""
+    sr0, sr, sc0, sc = (int(v) for v in win)
+    if lvl == 1:
+        return img[sr0:sr0 + sr, sc0:sc0 + sc]
+    srow, scol = (int(v) for v in kp.levels[lvl][5:7])
+    src = out[srow + sr0:srow + sr0 + sr, scol + sc0:scol + sc0 + sc]
+    assert not src.isnan().any()
+    return src
+
+
+def _emulate_packedpyr(img, kp, plan):
+    """K7's items in ticket order, in torch (`_k7_step`): a tile of depth
+    1 from level l-1's window in the buffer, one of depth 2 from level
+    l-2's, through its level-(l-1) window computed on the way; pad and
+    zero items as the kernel writes them."""
+    h, w = img.shape
+    r = plan.r
+    out = torch.full((plan.total_rows, plan.wpl), float("nan"))
+    for rec in kp.records:
+        kind, lvl, a, n, c0, nc = (int(v) for v in rec[:6])
+        if kind == tpp.KIND_ZERO:
+            out[a:a + n, c0:c0 + nc] = 0.0
+            continue
+        if kind == tpp.KIND_PAD:
+            iy = (torch.arange(a, a + n) - r).clamp(0, h - 1)
+            u = torch.arange(nc)
+            v = img[iy[:, None], (u - r).clamp(0, w - 1)[None, :]]
+            out[a:a + n, :nc] = torch.where(u < w + 2 * r, v, 0.0)
+            continue
+        sc0, sc, sr0, sr = (int(v) for v in rec[6:10])
+        win = (sr0, sr, sc0, sc)
+        if rec[11] == 1:
+            stage = _k7_source(out, img, kp, lvl, win)
+        else:
+            inner = rec[16:20]
+            stage = _k7_step(out, img, kp, lvl - 1, sr0 + r, sr, sc0 + r,
+                             sc, inner, _k7_source(out, img, kp, lvl - 1,
+                                                   inner))
+        base = int(kp.levels[lvl][0])
+        out[base + a:base + a + n, c0:c0 + nc] = _k7_step(
+            out, img, kp, lvl, a, n, c0, nc, win, stage)
+    return out
+
+
+@pytest.mark.parametrize("h, w, levels", [(240, 320, 4), (480, 640, 8)])
+def test_packedpyr_tile_emulation_computes_the_plain_version(h, w, levels):
+    """K7's tiles emulated in ticket order (`_emulate_packedpyr`: t1 once
+    per (row, window column), then the column chains; a depth-2 tile
+    through its level-(l-1) window) equal the plain version over the
+    whole buffer, each source read after it was written."""
+    img = torch.from_numpy(np.random.default_rng(16).uniform(
+        0, 255, (h, w)).astype(np.float32))
+    kp = tpp.kernel_plan(h, w, levels, 1.2, 21)
+    plan = tpp.pyramid_plan(h, w, levels, 1.2, 21)
+    got = _emulate_packedpyr(img, kp, plan)
+    assert torch.equal(got, tpp.build_packed_pyramid_plain(img, levels, 1.2,
+                                                           21))
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3])
+def test_patchgather_store_split_covers_each_patch_word_once(n):
+    """K2's stores of patch n (1849 words, so n mod 4 words past a 16-byte
+    boundary): scalar head words up to a boundary, 16-byte body stores
+    from it, scalar tail words; together every word exactly once."""
+    words = 43 * 43
+    head, vec, tail = tpg.store_split(n, words)
+    assert 0 <= head < 4 and 0 <= tail < 4
+    assert (n * words + head) % 4 == 0
+    hits = np.zeros(words, np.int32)
+    hits[:head] += 1
+    for k in range(vec):
+        hits[head + 4 * k:head + 4 * k + 4] += 1
+    hits[head + 4 * vec:] += 1
+    assert head + 4 * vec + tail == words
+    np.testing.assert_array_equal(hits, 1)
