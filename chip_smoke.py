@@ -48,11 +48,23 @@ It builds the port's CUDA kernels from `pislamfusion_tpu_torch/csrc/`
    device time by kernel and host time by operator. FastVO's tracking is
    checked as bench.py does; the Map2D mosaics must cover the union of
    the frames' footprints;
+2c. drives SLAM's geometric base at full width (`solver_chain`, frames
+   0-6 of the same strip): `orb_detect` (K1, K4, K2) on every frame,
+   Hamming matching of frames 0 and 6 with the rotation filter,
+   unprojection through `Camera`, the `svd` and `opt` initializers
+   (`create_initializer`), triangulation with the true poses, the plane
+   RANSAC, PnP of frames 1-5, BA over frames 0-6 from a perturbed start
+   (tol 0 and tol 1e-4), `fit_sim3` of BA's camera centres to the truth
+   and multi-homography matching; it prints each step's result, errors
+   against the true poses, device ms (CUDA events) and launches
+   (torch.profiler), and gates on the PnP and BA poses, BA's cost, the
+   plane's normal and K1, K4 and K2 having launched;
 3. checks the card's runs against the port's plain CPU runs on a small
    strip (600x640): FastVO ORB (both pyramids) and SIFT (3 frames, 256
-   features, 3 bands), and Map2D Types 1-4, Type 4 with and without
-   seams (6 frames, 3 bands), and prints the kernel table and the result
-   line.
+   features, 3 bands), Map2D Types 1-4, Type 4 with and without
+   seams (6 frames, 3 bands), and the solver chain on frames 0-2 (the
+   card's features and one set of samples for both), and prints the
+   kernel table and the result line.
 
 Every failure raises and ends the script with a nonzero exit code. With no
 CUDA device it exits nonzero before printing any result.
@@ -1200,6 +1212,9 @@ def main() -> int:
         lambda: make_map2d(4, H, W, fx, poses, dev, {
             "Map2DRender.EnableSeam": 1, "Map2D.RenderBatch": 8}),
         frames, poses, wrappers, ("shearwarp", "bandedsandwich"))
+    # ---- phase 2c: SLAM's solvers at full width, from orb_detect (K1, K4,
+    # K2) through the initializers, PnP, BA and multih
+    run_solver_phase(frames, poses, fx, wrappers)
     for row in rows:
         # each kernel's count from the path it was ported for
         path = (orb_launches if row["name"] in (
@@ -1214,6 +1229,7 @@ def main() -> int:
     card_vs_cpu("orb", dev, pyramid="packed")
     card_vs_cpu("sift", dev)
     map2d_card_vs_cpu(dev)
+    solver_card_vs_cpu(dev)
 
     print(card)
     print(json.dumps({"kernels": rows}))
@@ -1399,6 +1415,474 @@ def run_map2d(label, make, frames, poses, wrappers, path_kernels):
     m = make()
     profile_frames(lambda: _feed_all(m, frames[:8], poses[:8]), 8)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 2c: SLAM's solvers at full width
+# ---------------------------------------------------------------------------
+
+class Draws:
+    """The chain's RANSAC samples by step name: drawn from one CPU
+    generator the first time a name is asked for and kept, so that a second
+    run (the CPU after the card, or the port after the JAX package, whose
+    draws `saved` may hold) takes the same samples."""
+
+    def __init__(self, seed: int = 0, saved=None):
+        import torch
+        self.gen = torch.Generator().manual_seed(seed)
+        self.saved = dict(saved or {})
+
+    def indices(self, name, valid, iters: int, k: int):
+        import torch
+        from pislamfusion_tpu_torch.ops import ransac
+        if name not in self.saved:
+            self.saved[name] = ransac.sample_indices(
+                self.gen, valid.shape[0], valid.cpu(), iters, k)
+        return torch.as_tensor(self.saved[name]).to(valid.device)
+
+    def noise(self, name, shape, device):
+        import torch
+        from pislamfusion_tpu_torch.ops import ransac
+        if name not in self.saved:
+            self.saved[name] = ransac.gumbel(self.gen, shape)
+        return torch.as_tensor(self.saved[name]).to(device)
+
+
+# the chain's perturbation of BA's start (seeded numpy): camera positions
+# and map points by PERTURB_M metres a component, rotations by
+# PERTURB_RAD radians
+PERTURB_M, PERTURB_RAD = 0.5, 0.005
+
+
+def ba_start(rng, n_frames: int, n_points: int):
+    """(pose twists [F, 6], point offsets [P, 3]) of BA's perturbed start,
+    frame 0 unperturbed; the same numbers for both packages and devices."""
+    dpose = np.concatenate([rng.normal(0, PERTURB_M, (n_frames, 3)),
+                            rng.normal(0, PERTURB_RAD, (n_frames, 3))], -1)
+    dpose[0] = 0.0
+    return (dpose.astype(np.float32),
+            rng.normal(0, PERTURB_M, (n_points, 3)).astype(np.float32))
+
+
+def pose_errors(T_w2c, poses_c2w):
+    """(camera-centre error m, rotation error deg) [K] of world->camera
+    poses against the true camera->world poses (numpy)."""
+    from pislamfusion_tpu_torch.ops import lie
+    import torch
+    est = lie.se3_inv(torch.as_tensor(np.asarray(T_w2c, np.float32)))
+    truth = torch.as_tensor(np.asarray(poses_c2w, np.float32))
+    d = lie.se3_mul(lie.se3_inv(truth), est).numpy()
+    dc = np.linalg.norm(est.numpy()[..., :3] - truth.numpy()[..., :3],
+                        axis=-1)
+    rot = 2.0 * np.degrees(np.arcsin(np.clip(np.linalg.norm(
+        d[..., 3:6], axis=-1), 0.0, 1.0)))
+    return dc, rot
+
+
+def solver_chain(frames, poses, fx, n_features=1000, n_levels=8,
+                 iters=256, mh_iters=192, ba_iters=10, draws=None,
+                 feats=None, step=None, seed=0):
+    """SLAM's solvers through the port's entry points, on the device of
+    `frames` ([K, H, W, 3] uint8, a straight strip; `poses` [K, 7] numpy,
+    the true camera->world poses):
+
+    1. `orb_detect` on every frame (or `feats`, a list of its outputs, if
+       given), then `match_descriptors` (Hamming, cross-check) of frames 0
+       and K-1 and `rotation_consistency_mask`;
+    2. unprojection through `Camera`;
+    3. `create_initializer` with Initializer=svd, then =opt (sigma 1 px);
+    4. `triangulate` of the matches with the true poses (kept where in
+       front, finite and with parallax cos in (0, 0.99998));
+    5. `find_plane` on those points (sigma 1 m);
+    6. `find_pnp` of frames 1..K-2 against them (each frame's ORB matched
+       to frame 0's triangulated features);
+    7. `ba.optimize` over all frames from `ba_start`'s perturbation, frame
+       0 fixed, Huber at sqrt(5.991) px: `ba_iters` steps with tol=0, then
+       up to 3 x ba_iters with tol=1e-4;
+    8. `fit_sim3` of the tol=0 BA's camera centres to the true ones;
+    9. `match_multih` of frames 0 and K-1 (4 planes, `mh_iters`).
+
+    draws: None runs each RANSAC through its public entry point with a CPU
+    generator seeded by the step; a `Draws` hands every RANSAC its samples
+    through the `_from_samples` variants. step(name), when given, returns
+    the context each step runs in (timing, profiling). Returns a dict of
+    the steps' results as tensors on the device."""
+    import contextlib
+
+    import torch
+    from pislamfusion_tpu_torch import Camera
+    from pislamfusion_tpu_torch.core.svar import Svar
+    from pislamfusion_tpu_torch.models.initializers import create_initializer
+    from pislamfusion_tpu_torch.ops import ba, lie, matching, multih, ransac
+    from pislamfusion_tpu_torch.ops import image as im
+    from pislamfusion_tpu_torch.ops.features import orb
+
+    step = step or (lambda name: contextlib.nullcontext())
+    K, H, W = frames.shape[:3]
+    dev = frames.device
+    cam = Camera(W, H, fx, fx, W / 2.0, H / 2.0)
+    sigma = 1.0 / fx
+    r = {}
+
+    def gen(i):
+        return torch.Generator().manual_seed(1000 * seed + i)
+
+    with step("detect"):
+        if feats is None:
+            params = orb.OrbParams(n_features=n_features, n_levels=n_levels)
+            feats = [orb.orb_detect(im.rgb_to_gray(f.to(torch.float32)),
+                                    params) for f in frames]
+        feats = [{k: v.to(dev) for k, v in f.items()} for f in feats]
+        r["feats"] = feats
+    fa, fb = feats[0], feats[-1]
+    with step("match"):
+        idx, ok = matching.match_descriptors(fa["desc"], fa["valid"],
+                                             fb["desc"], fb["valid"], "orb")
+        ok = matching.rotation_consistency_mask(fa["angle"], fb["angle"],
+                                                idx, ok)
+        r["idx"], r["ok"] = idx, ok
+    with step("unproject"):
+        ra = cam.unproject(fa["xy"])
+        rb = cam.unproject(fb["xy"][torch.where(ok, idx, 0).long()])
+    cfg = Svar()
+    cfg.set("Initializer", "svd")
+    cfg.set("Initializer.RansacIters", str(iters))
+    with step("init svd"):
+        init = create_initializer(cfg)
+        if draws is None:
+            r["svd"] = init(gen(1), ra[:, :2], rb[:, :2], ok, sigma)
+        else:
+            r["svd"] = init.from_samples(
+                draws.indices("init_h", ok, iters, 4),
+                draws.indices("init_f", ok, iters, 8), ra[:, :2], rb[:, :2],
+                ok, sigma)
+    with step("init opt"):
+        cfg.set("Initializer", "opt")
+        r["opt"] = create_initializer(cfg)(gen(2), ra[:, :2], rb[:, :2], ok,
+                                           sigma)
+    P = torch.as_tensor(np.asarray(poses, np.float32), device=dev)
+    with step("triangulate"):
+        X, depth = ransac.triangulate(P[0], P[-1], ra, rb)
+        cosp = ransac.parallax_cos(P[0], P[-1], X)
+        tri = (ok & (depth > 0) & torch.isfinite(X).all(-1) & (cosp > 0)
+               & (cosp < 0.99998))
+        X = torch.where(tri[:, None], X, 0.0)
+        r["X"], r["tri"] = X, tri
+    with step("plane"):
+        if draws is None:
+            r["plane"] = ransac.find_plane(gen(3), X, tri, 1.0, iters)
+        else:
+            r["plane"] = ransac._find_plane_from_samples(
+                draws.indices("plane", tri, iters, 3), X, tri, 1.0)
+    r["pnp"], obs_uv, obs_w = [], [ra[:, :2]], [tri]
+    with step("pnp"):
+        for i in range(1, K - 1):
+            fi = feats[i]
+            idx_i, ok_i = matching.match_descriptors(
+                fa["desc"], fa["valid"] & tri, fi["desc"], fi["valid"],
+                "orb")
+            p2n = cam.unproject(fi["xy"][torch.where(
+                ok_i, idx_i, 0).long()])[:, :2]
+            if draws is None:
+                res = ransac.find_pnp(gen(10 + i), X, p2n, ok_i, iters=iters)
+            else:
+                res = ransac._find_pnp_from_samples(
+                    draws.indices(f"pnp{i}_6", ok_i, iters // 2, 6),
+                    draws.indices(f"pnp{i}_4", ok_i, iters - iters // 2, 4),
+                    X, p2n, ok_i)
+            r["pnp"].append(res)
+            obs_uv.append(p2n)
+            obs_w.append(ok_i)
+    obs_uv.append(rb[:, :2])
+    obs_w.append(tri)
+    with step("ba"):
+        n = X.shape[0]
+        dpose, dX = ba_start(np.random.default_rng(seed), K, n)
+        T0 = lie.se3_mul(lie.se3_exp(torch.as_tensor(dpose, device=dev)),
+                         lie.se3_inv(P))
+        fixed = torch.zeros(K, dtype=torch.bool, device=dev)
+        fixed[0] = True
+        prob = ba.make_problem(
+            T0, fixed, X + torch.as_tensor(dX, device=dev) * tri[:, None],
+            ~tri, torch.arange(K, device=dev).repeat_interleave(n),
+            torch.arange(n, device=dev).repeat(K), torch.cat(obs_uv),
+            torch.cat(obs_w).to(torch.float32), device=dev)
+        hd = math.sqrt(5.991) / fx
+        r["ba_cost0"] = ba._total_cost(prob, hd)
+        r["ba"] = ba.optimize(prob, iters=ba_iters, huber_delta=hd)
+        r["ba_tol_stats"] = {}
+        r["ba_tol"] = ba.optimize(prob, iters=3 * ba_iters, huber_delta=hd,
+                                  tol=1e-4, stats=r["ba_tol_stats"])
+    with step("fit_sim3"):
+        r["sim3"] = ba.fit_sim3(lie.se3_inv(r["ba"][0]), P)
+    with step("multih"):
+        args = (fa["desc"], fa["valid"], fa["xy"], fb["desc"], fb["valid"],
+                fb["xy"])
+        if draws is None:
+            r["multih"] = multih.match_multih(gen(4), *args, n_h=4,
+                                              ransac_iters=mh_iters)
+        else:
+            r["multih"] = multih._match_multih_from_noise(
+                draws.noise("multih", (4, mh_iters, fa["xy"].shape[0]), dev),
+                *args)
+    return r
+
+
+def chain_summary(r, poses):
+    """The chain's results (`solver_chain`'s dict; its tensors, or the
+    same results as numpy) as numpy, with their errors against the true
+    poses."""
+    import torch
+    from pislamfusion_tpu_torch.ops import lie
+
+    def n(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().numpy()
+        return np.asarray(x)
+
+    def t(x):
+        return torch.as_tensor(np.array(n(x), np.float32))
+    s = {"n_match": int(n(r["ok"]).sum()), "ok": n(r["ok"]),
+         "n_tri": int(n(r["tri"]).sum()), "X": n(r["X"]),
+         "tri": n(r["tri"])}
+    # the second camera's centre in the first camera's frame: the
+    # direction the initializers' unit translation should take
+    c = lie.se3_apply(lie.se3_inv(t(poses[0])), t(poses[-1, :3])).numpy()
+    for name in ("svd", "opt"):
+        d = {k: n(v) for k, v in r[name]._asdict().items()}
+        est = d["T_c2w"][:3]
+        d["dir_cos"] = float(np.dot(est, c) / max(
+            np.linalg.norm(est) * np.linalg.norm(c), 1e-12))
+        s[name] = d
+    model, inl, _, ok = (n(x) for x in r["plane"])
+    normal = lie.quat_to_matrix(t(model[3:7])).numpy()[:, 2]
+    s["plane"] = {"model": model, "inliers": inl, "ok": bool(ok),
+                  "tilt_deg": float(np.degrees(np.arccos(min(1.0, abs(
+                      float(normal[2]))))))}
+    s["pnp"] = []
+    for i, res in enumerate(r["pnp"], 1):
+        T, inl, _, ok = (n(x) for x in res)
+        dc, rot = pose_errors(T, poses[i])
+        s["pnp"].append({"T": T, "inliers": inl, "ok": bool(ok),
+                         "err_m": float(dc), "err_deg": float(rot)})
+    for name in ("ba", "ba_tol"):
+        Tw, pts, cost = (n(x) for x in r[name])
+        dc, rot = pose_errors(Tw, poses)
+        s[name] = {"poses": Tw, "points": pts, "cost": float(cost),
+                   "err_m": dc, "err_deg": rot}
+    s["ba_cost0"] = float(n(r["ba_cost0"]))
+    s["ba_tol_stats"] = dict(r.get("ba_tol_stats", {}))
+    S = n(r["sim3"])
+    c_ba = lie.se3_inv(t(s["ba"]["poses"])).numpy()[:, :3]
+    A = c_ba - c_ba.mean(0)
+    ev = np.linalg.eigvalsh(A.T.astype(np.float64) @ A)
+    aligned = lie.sim3_apply(t(S), t(c_ba)).numpy()
+    s["sim3"] = {"model": S, "rank1": bool(ev[1] <= 1e-5 * max(ev[2],
+                                                                 1e-12)),
+                 "err_m": np.linalg.norm(aligned - poses[:, :3], axis=-1)}
+    idx, ok, planes = (n(x) for x in r["multih"])
+    s["multih"] = {"idx": idx, "ok": ok, "n_planes": int(planes)}
+    return s
+
+
+def chain_line(s):
+    """The chain summary's results and errors on one line."""
+    pnp = s["pnp"]
+    parts = [
+        f"matches {s['n_match']}, triangulated {s['n_tri']}",
+        *(f"init {k}: ok {bool(s[k]['ok'])}, used_h {bool(s[k]['used_h'])}"
+          f", inliers {int(s[k]['mask'].sum())}, translation direction "
+          f"cos {s[k]['dir_cos']:.5f}" for k in ("svd", "opt")),
+        f"plane: ok {s['plane']['ok']}, inliers "
+        f"{int(s['plane']['inliers'].sum())}, normal "
+        f"{s['plane']['tilt_deg']:.4f} deg from vertical",
+        "pnp: " + "; ".join(
+            f"frame {i}: ok {q['ok']}, inliers {int(q['inliers'].sum())}, "
+            f"{q['err_m']:.4f} m, {q['err_deg']:.4f} deg"
+            for i, q in enumerate(pnp, 1)),
+        f"ba tol=0: cost {s['ba_cost0']:.6g} -> {s['ba']['cost']:.6g}, "
+        f"centres max {s['ba']['err_m'].max():.4f} m, rotations max "
+        f"{s['ba']['err_deg'].max():.4f} deg",
+        f"ba tol>0: cost -> {s['ba_tol']['cost']:.6g}"
+        + "".join(f", {k} {v}" for k, v in s["ba_tol_stats"].items())
+        + f", centres max {s['ba_tol']['err_m'].max():.4f} m",
+        f"fit_sim3: scale {float(s['sim3']['model'][7]):.5f}, rank guard "
+        f"{'on' if s['sim3']['rank1'] else 'off'}, aligned centres max "
+        f"{s['sim3']['err_m'].max():.4f} m",
+        f"multih: matches {int(s['multih']['ok'].sum())}, planes "
+        f"{s['multih']['n_planes']}",
+    ]
+    return "; ".join(parts)
+
+
+# phase 2c's gates against the true poses, set from the port's CPU run and
+# the JAX package's CPU run of the chain on the same 1080p pair (PERF.md
+# section 7); the plane's from the issue's bound
+PNP_TOL_M, PNP_TOL_DEG = 0.6, 0.27
+BA_TOL_M, BA_TOL_DEG = 0.5, 0.07
+PLANE_TOL_DEG = 1.0
+SOLVER_STEPS = ("match", "init svd", "init opt", "triangulate", "plane",
+                "pnp", "ba", "fit_sim3", "multih")
+
+
+def check_chain(s, label):
+    """Phase 2c's gates on a chain summary; raises on a failure."""
+    bad = []
+    if not s["plane"]["tilt_deg"] < PLANE_TOL_DEG:
+        bad.append("plane normal")
+    for i, q in enumerate(s["pnp"], 1):
+        if not (q["ok"] and q["err_m"] < PNP_TOL_M
+                and q["err_deg"] < PNP_TOL_DEG):
+            bad.append(f"pnp frame {i}")
+    for name in ("ba", "ba_tol"):
+        b = s[name]
+        if not (b["cost"] < s["ba_cost0"] and b["err_m"].max() < BA_TOL_M
+                and b["err_deg"].max() < BA_TOL_DEG):
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"{label}: {', '.join(bad)} outside the gates "
+                             f"(pnp {PNP_TOL_M} m / {PNP_TOL_DEG} deg, ba "
+                             f"{BA_TOL_M} m / {BA_TOL_DEG} deg, plane "
+                             f"{PLANE_TOL_DEG} deg)")
+
+
+def run_solver_phase(frames, poses, fx, wrappers):
+    """Phase 2c: `solver_chain` on frames 0-6 of the 1080p strip (ORB-1000,
+    8 levels): a warm-up pass; a timed pass with every launch count of
+    `wrappers` set to 0 just before and read just after, each step's
+    device time from CUDA events; a pass with each solver step under
+    torch.profiler for its kernel launches. Gates: `check_chain`, and
+    K1, K4 and K2 launched. Returns {kernel: launches}."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    K = 7
+    fr, ps = frames[:K], poses[:K]
+    H, W = fr.shape[1:3]
+    solver_chain(fr, ps, fx)                              # warm-up
+    torch.cuda.synchronize()
+    evs = {}
+
+    @contextlib.contextmanager
+    def timed_step(name):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        yield
+        e1.record()
+        evs[name] = (e0, e1)
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    r = solver_chain(fr, ps, fx, step=timed_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    ms = {k: e0.elapsed_time(e1) for k, (e0, e1) in evs.items()}
+    counts = {}
+
+    @contextlib.contextmanager
+    def profiled_step(name):
+        if name not in SOLVER_STEPS:
+            yield
+            return
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            yield
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type.name == "CUDA"
+              and not getattr(e, "is_user_annotation", False)]
+        counts[name] = (sum(1 for e in ev if not e.name.startswith(
+            ("Memcpy", "Memset"))), len(ev))
+
+    solver_chain(fr, ps, fx, step=profiled_step)
+    s = chain_summary(r, ps)
+    print(f"SLAM solvers (phase 2c) {W}x{H}, frames 0-{K - 1}, ORB-1000, 8 "
+          f"levels, RANSAC 256 hypotheses, multih 4 planes x 192: "
+          f"{chain_line(s)}")
+    print("SLAM solvers device ms by step (CUDA events): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in ms.items())
+        + f"; host clock {wall * 1e3:.1f} ms for the chain")
+    print("SLAM solvers launches by step (torch.profiler; kernels, and all "
+          "device activities): " + ", ".join(
+              f"{k} {c[0]}/{c[1]}" for k, c in counts.items()))
+    print("SLAM solvers launches of the port's kernels in the timed pass: "
+          + ", ".join(f"{k} {n}" for k, n in launches.items()))
+    check_chain(s, "phase 2c")
+    if min(launches[k] for k in ("flatpyr", "fastselect", "patchgather")) < 1:
+        raise AssertionError(f"phase 2c: K1, K4 or K2 was not launched: "
+                             f"{launches}")
+    return launches, ms, counts
+
+
+# phase 3's solver gates, card against CPU on the same features and
+# samples (PERF.md section 7): masks may differ on CARD_MASK_SHARE of the
+# matches; BA's poses (translation m, quaternion components) within
+# CARD_POSE_TOL, PnP's within CARD_PNP_TOL (its 12 LM steps stop short of
+# convergence, from hypotheses whose SVDs differ in the last bits), the
+# unit-translation initializers' within CARD_INIT_TOL; BA's cost within
+# CARD_COST_RTOL relative
+CARD_MASK_SHARE, CARD_POSE_TOL, CARD_INIT_TOL = 0.01, 1e-3, 1e-3
+CARD_PNP_TOL, CARD_COST_RTOL = 0.1, 1e-3
+
+
+def solver_card_vs_cpu(dev):
+    """The chain on the small strip (600x640, frames 0-2, ORB-256 with 4
+    levels, 64 hypotheses, multih 4 x 64): on the card, then on the CPU
+    with the card's features and the same samples (one `Draws`). Gates:
+    the initializers' decisions equal, the masks within CARD_MASK_SHARE,
+    the poses and BA's cost within their tolerances."""
+    import torch
+    h2, w2, fx2 = 600, 640, 600.0
+    fr2, p2 = render_strip(3, h2, w2, fx2, 0.24, 1024, "cpu")
+    draws = Draws(0)
+    kw = dict(n_features=256, n_levels=4, iters=64, mh_iters=64,
+              draws=draws)
+    card = solver_chain(fr2.to(dev), p2, fx2, **kw)
+    cpu = solver_chain(fr2, p2, fx2, feats=[
+        {k: v.cpu() for k, v in f.items()} for f in card["feats"]], **kw)
+    sg, sc = chain_summary(card, p2), chain_summary(cpu, p2)
+    n = len(sg["ok"])
+
+    def share(a, b):
+        return float(np.mean(np.asarray(a) != np.asarray(b)))
+    masks = {"matches": share(sg["ok"], sc["ok"]),
+             "svd": share(sg["svd"]["mask"], sc["svd"]["mask"]),
+             "opt": share(sg["opt"]["mask"], sc["opt"]["mask"]),
+             "plane": share(sg["plane"]["inliers"], sc["plane"]["inliers"]),
+             "pnp": share(sg["pnp"][0]["inliers"], sc["pnp"][0]["inliers"]),
+             "multih": share(sg["multih"]["ok"], sc["multih"]["ok"])}
+    poses = {
+        "svd": np.abs(sg["svd"]["T_c2w"] - sc["svd"]["T_c2w"]).max(),
+        "opt": np.abs(sg["opt"]["T_c2w"] - sc["opt"]["T_c2w"]).max(),
+        "pnp": np.abs(sg["pnp"][0]["T"] - sc["pnp"][0]["T"]).max(),
+        "ba": np.abs(sg["ba"]["poses"] - sc["ba"]["poses"]).max(),
+        "ba tol>0": np.abs(sg["ba_tol"]["poses"]
+                           - sc["ba_tol"]["poses"]).max()}
+    cost = abs(sg["ba"]["cost"] - sc["ba"]["cost"]) / max(sc["ba"]["cost"],
+                                                          1e-12)
+    decisions = all(bool(sg[k][f]) == bool(sc[k][f])
+                    for k in ("svd", "opt") for f in ("ok", "used_h"))
+    print(f"SLAM solvers small strip {w2}x{h2}, frames 0-2, card vs CPU on "
+          f"the card's features and one set of samples: {n} rows; "
+          f"decisions equal {decisions} (svd ok {bool(sg['svd']['ok'])} "
+          f"used_h {bool(sg['svd']['used_h'])}, opt ok "
+          f"{bool(sg['opt']['ok'])}); mask shares differing "
+          + ", ".join(f"{k} {v:.4f}" for k, v in masks.items())
+          + "; pose max |diff| " + ", ".join(
+              f"{k} {v:.2e}" for k, v in poses.items())
+          + f"; BA cost {sg['ba']['cost']:.6g} vs {sc['ba']['cost']:.6g} "
+          f"(relative {cost:.2e}); card: {chain_line(sg)}")
+    init_ok = all(poses[k] <= CARD_INIT_TOL for k in ("svd", "opt")
+                  if sg[k]["ok"])
+    if not (decisions and max(masks.values()) <= CARD_MASK_SHARE
+            and init_ok and poses["pnp"] <= CARD_PNP_TOL
+            and max(poses["ba"], poses["ba tol>0"]) <= CARD_POSE_TOL
+            and cost <= CARD_COST_RTOL):
+        raise AssertionError("SLAM solvers: the card's run disagrees with "
+                             "the CPU run")
 
 
 def map2d_card_vs_cpu(dev):

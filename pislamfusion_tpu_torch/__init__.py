@@ -9,8 +9,11 @@ for a tensor on the CPU; for a CUDA tensor it launches its kernel or
 raises.
 
 Ported so far: the FastVO track+fuse path (`models/fastvo.py`), with the
-ORB and the SIFT detector, and the Map2D orthomosaic engines
-(`models/map2d.py`, Map2D.Type 1-4, `create_map2d`).
+ORB and the SIFT detector, the Map2D orthomosaic engines
+(`models/map2d.py`, Map2D.Type 1-4, `create_map2d`), and SLAM's
+geometric base: the camera models, the host modules (`core/`, `utils/`,
+`io/`), and the solvers (`ops/{lie,matching,ransac,init2view,multih,
+ba}`, `models/initializers`).
 """
 from .core.camera import Camera
 from .core.device import resolve_device

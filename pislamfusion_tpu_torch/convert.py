@@ -20,6 +20,11 @@ holds the sum of weight times colour, Type 2's the blended colour.
 `map2d_state_to_numpy` reads it from an engine of either package,
 `map2d_state_from_numpy` puts it on a device and `load_map2d_state` makes
 a port engine of the same kind continue the same survey from it.
+
+A bundle problem crosses as its arrays in the reference `BAProblem`'s
+field order (`ba_problem_from_numpy`), and a camera as the reference's
+`Camera.parameters()` vector (`camera_to_parameters`,
+`camera_from_parameters`), so both packages can be fed the same problem.
 """
 from __future__ import annotations
 
@@ -216,3 +221,42 @@ def load_map2d_state(engine, state: dict):
         elif state.get("pending"):
             raise ValueError("only a RenderMap2D takes pending frames")
     return engine
+
+
+def ba_problem_from_numpy(arrays, device=None):
+    """A port `ops.ba.BAProblem` on `device` (None means `cuda`) from the
+    reference BAProblem's arrays as numpy: a dict keyed by its field names,
+    or a sequence in its field order (poses, pose_fixed, points,
+    point_fixed, obs_frame, obs_point, obs_uv, obs_weight, rel_i, rel_j,
+    rel_meas, rel_weight, prior_frame, prior_pose, prior_info). Indices
+    become int64, masks bool, the rest float32."""
+    from .ops.ba import BAProblem
+    device = resolve_device(device)
+    fields = BAProblem._fields
+    if not isinstance(arrays, dict):
+        arrays = dict(zip(fields, arrays))
+    if set(arrays) != set(fields):
+        raise ValueError(f"a BAProblem has the arrays {fields}, not "
+                         f"{tuple(arrays)}")
+
+    def dtype(name):
+        if name.endswith("_fixed"):
+            return torch.bool
+        if name in ("obs_frame", "obs_point", "rel_i", "rel_j",
+                    "prior_frame"):
+            return torch.int64
+        return torch.float32
+    return BAProblem(**{k: torch.as_tensor(np.asarray(arrays[k])).to(
+        device=device, dtype=dtype(k)) for k in fields})
+
+
+def camera_to_parameters(camera):
+    """The camera's parameter vector (`Camera.parameters()`, either
+    package's) as a list of floats."""
+    return [float(v) for v in camera.parameters()]
+
+
+def camera_from_parameters(params):
+    """The port's camera model of a parameter vector (PinHole, ATAN,
+    OpenCV or OCAM by its length, `Camera.from_parameters`)."""
+    return Camera.from_parameters(params)

@@ -30,8 +30,10 @@ pyrDown and pyrUp runs through K8. `mark`, when set to a callable, is
 called with each stage's name as it is enqueued ("geometry", "seam",
 "warp", "pyramids", "composite"), for stage timing.
 
-PNGs are written with the reference's zlib/struct encoder and read with
-its inverse (`read_png`), without PIL or the native library.
+PNGs are written with the reference's zlib/struct encoder. `read_png`
+reads any PNG through PIL where PIL imports, as the reference does, and
+otherwise through its own decoder (every colour type and depth, Adam7),
+which converts to RGB as PIL does.
 """
 from __future__ import annotations
 
@@ -679,62 +681,158 @@ def _write_png(path: str, arr: np.ndarray):
         f.write(png)
 
 
-def _unfilter(line, prev, ftype: int, bpp: int):
-    """Undo one PNG scanline filter (PNG spec section 9) in uint8."""
-    cur = line.astype(np.int32)
-    up = prev.astype(np.int32)
-    if ftype == 0:
-        return line
-    if ftype == 2:
-        return ((cur + up) & 0xFF).astype(np.uint8)
-    out = np.zeros_like(cur)
-    for i in range(cur.size):          # Sub, Average and Paeth are serial
-        a = out[i - bpp] if i >= bpp else 0
-        b = up[i]
-        c = up[i - bpp] if i >= bpp else 0
-        if ftype == 1:
-            pred = a
-        elif ftype == 3:
-            pred = (a + b) // 2
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# Adam7 passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _unfilter_rows(rows, bpp: int):
+    """Unfiltered bytes [h, stride] of filtered scanlines [h, 1 + stride]
+    (PNG spec section 9). With only None (0), Sub (1) and Up (2) rows:
+    None and Sub rows together, Sub as a cumulative sum of each byte lane
+    mod 256, a run of Up rows as one cumulative sum down the run from the
+    row above it. With Average (3) or Paeth (4) rows, whose bytes depend
+    on the byte before them, `_unfilter_diagonals`."""
+    ftype, data = rows[:, 0], rows[:, 1:]
+    if ftype.max(initial=0) > 4:
+        raise ValueError(f"PNG filter type {ftype.max()} is not defined")
+    if ftype.max(initial=0) > 2:
+        return _unfilter_diagonals(ftype, data, bpp)
+    h, stride = data.shape
+    out = data.copy()
+    sub = np.nonzero(ftype == 1)[0]
+    if sub.size:
+        out[sub] = np.cumsum(data[sub].reshape(sub.size, -1, bpp), 1,
+                             dtype=np.uint8).reshape(sub.size, stride)
+    prev = np.zeros(stride, np.uint8)
+    y = 0
+    while y < h:
+        if ftype[y] == 2:
+            e = y
+            while e < h and ftype[e] == 2:
+                e += 1
+            out[y:e] = prev + np.cumsum(data[y:e], 0, dtype=np.uint8)
+            y = e
         else:
-            p = a + b - c
-            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-        out[i] = (cur[i] + pred) & 0xFF
-    return out.astype(np.uint8)
+            y += 1
+        prev = out[y - 1]
+    return out
 
 
-def read_png(path: str) -> np.ndarray:
-    """[H, W, 3] uint8 from an 8-bit RGB, RGBA or gray PNG without
-    interlacing (what `_write_png` and common encoders write)."""
-    with open(path, "rb") as f:
-        data = f.read()
+def _unfilter_diagonals(ftype, data, bpp: int):
+    """All rows at once, whatever their filters: a pixel's bytes depend on
+    the pixels left, above and above-left of it, so the pixels of one
+    anti-diagonal (row + column = k) are undone together, in h + w - 1
+    steps of vector operations. The image is held sheared and transposed,
+    [k, row, byte], so that an anti-diagonal is one contiguous slice and
+    its neighbours the slices before it; what lies outside the image
+    stays 0, as the filters' borders are."""
+    h, stride = data.shape
+    w = stride // bpp
+    n = w + h + 2
+    cur = np.zeros((n, h, bpp), np.int16)
+    out = np.zeros((n, h + 1, bpp), np.int16)
+    rows = np.arange(h)
+    for x in range(w):      # pixel (y, x) -> diagonal x + y + 2
+        cur[x + 2 + rows, rows] = data[:, x * bpp:(x + 1) * bpp]
+    t = ftype.astype(np.int16)[:, None]
+    for k in range(2, w + h + 1):
+        lo, hi = max(0, k - w - 1), min(h, k - 1)
+        a = out[k - 1, lo + 1:hi + 1]
+        b = out[k - 1, lo:hi]
+        c = out[k - 2, lo:hi]
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a,
+                         np.where(pb <= pc, b, c))
+        ty = t[lo:hi]
+        pred = np.select([ty == 1, ty == 2, ty == 3, ty == 4],
+                         [a, b, (a + b) >> 1, paeth], 0)
+        out[k, lo + 1:hi + 1] = (cur[k, lo:hi] + pred) & 0xFF
+    res = np.empty((h, stride), np.uint8)
+    for x in range(w):
+        res[:, x * bpp:(x + 1) * bpp] = out[x + 2 + rows, rows + 1]
+    return res
+
+
+def _png_samples(rows, width: int, chans: int, depth: int):
+    """Samples [h, width, chans] of unfiltered scanlines [h, stride]."""
+    h = rows.shape[0]
+    if depth == 16:
+        return np.ascontiguousarray(rows).view(">u2").reshape(
+            h, width, chans).astype(np.uint16)
+    if depth == 8:
+        return rows.reshape(h, width, chans)
+    bits = np.unpackbits(rows, 1).reshape(h, -1, depth)
+    vals = bits @ (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return vals[:, :width * chans].reshape(h, width, chans)
+
+
+def _decode_png(data: bytes, path: str) -> np.ndarray:
+    """[H, W, 3] uint8 of any PNG, converted to RGB as PIL's
+    `convert("RGB")` converts it: palette through PLTE (tRNS ignored);
+    16-bit colour and gray+alpha by their high byte, 16-bit gray clipped
+    at 255 (PIL's I;16 mode); 1-, 2- and 4-bit gray scaled to 0-255;
+    alpha dropped."""
     if data[:8] != b"\x89PNG\r\n\x1a\n":
         raise ValueError(f"{path}: not a PNG file")
-    pos, idat, hdr = 8, [], None
+    pos, idat, hdr, plte = 8, [], None, None
     while pos < len(data):
         n, tag = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + n]
         if tag == b"IHDR":
             hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif tag == b"IDAT":
             idat.append(body)
         elif tag == b"IEND":
             break
         pos += 12 + n
     w, h, depth, ctype, _comp, _filt, interlace = hdr
-    chans = {0: 1, 2: 3, 4: 2, 6: 4}.get(ctype)
-    if depth != 8 or chans is None or interlace:
-        raise ValueError(f"{path}: only 8-bit gray/RGB(A) non-interlaced "
-                         "PNGs are read")
+    chans = _PNG_CHANNELS.get(ctype)
+    if chans is None or depth not in (1, 2, 4, 8, 16):
+        raise ValueError(f"{path}: PNG colour type {ctype} at depth "
+                         f"{depth} is not defined")
+    bits = depth * chans
+    bpp = max(1, bits // 8)
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    stride = w * chans
-    rows = raw.reshape(h, stride + 1)
-    img = np.zeros((h, stride), np.uint8)
-    prev = np.zeros(stride, np.uint8)
-    for y in range(h):
-        prev = img[y] = _unfilter(rows[y, 1:], prev, int(rows[y, 0]), chans)
-    img = img.reshape(h, w, chans)
+    img = np.zeros((h, w, chans), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        stride = -(-pw * bits // 8)
+        rows = raw[pos:pos + ph * (stride + 1)].reshape(ph, stride + 1)
+        pos += ph * (stride + 1)
+        img[y0::dy, x0::dx] = _png_samples(_unfilter_rows(rows, bpp), pw,
+                                           chans, depth)
+    if ctype == 3:
+        pal = np.zeros((256, 3), np.uint8)
+        pal[:len(plte)] = plte
+        return pal[img[..., 0]]
+    if depth == 16:
+        img = (np.minimum(img, 255) if ctype == 0 else img >> 8).astype(
+            np.uint8)
+    elif depth < 8:
+        img = img * np.uint8(255 // ((1 << depth) - 1))
     if chans < 3:
         return np.repeat(img[..., :1], 3, -1)
     return np.ascontiguousarray(img[..., :3])
+
+
+def read_png(path: str) -> np.ndarray:
+    """[H, W, 3] uint8 RGB of any PNG: through PIL's `convert("RGB")` where
+    PIL imports, as the reference reads it (map2d.py:740-745), else
+    through the package's own decoder, which converts as PIL does."""
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    if Image is not None:
+        with Image.open(path) as img:
+            return np.asarray(img.convert("RGB"))
+    with open(path, "rb") as f:
+        return _decode_png(f.read(), path)

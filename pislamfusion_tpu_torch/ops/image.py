@@ -2,7 +2,8 @@
 pyrDown/pyrUp, Laplacian pyramids, bilinear resize, bilinear sampling and
 homography warps.
 
-Port of pislamfusion_tpu/ops/image.py (:86-126, :304, :352-581, :603).
+Port of pislamfusion_tpu/ops/image.py (:86-126, :304, :352-581, :603,
+:616-624).
 The reference has two formulations of each separable stencil: banded
 matrix products (`_matmul_sep`, on the TPU, whose fused form is the
 banded-sandwich kernel) and f32 shift-and-add slices (on every other
@@ -289,3 +290,15 @@ def rgb_to_gray(img):
                      lambda: torch.tensor([0.299, 0.587, 0.114],
                                           dtype=img.dtype))
     return torch.einsum("...c,c->...", img[..., :3], w)
+
+
+def remap(img, map_xy):
+    """Dense remap (cv::remap / Undistorter::undistortFast; reference
+    image.py:616-624): out[y, x] = bilinear(img, map_xy[y, x]) with border
+    replication. img: [H, W] or [H, W, C] float; map_xy: [Ho, Wo, 2]
+    source coords."""
+    squeeze = img.ndim == 2
+    if squeeze:
+        img = img[..., None]
+    out = bilinear_sample(img, map_xy, 0.0, "replicate")[0]
+    return out[..., 0] if squeeze else out

@@ -1,15 +1,19 @@
 """Descriptor matching as dense distance matrices.
 
-Port of pislamfusion_tpu/ops/matching.py:26-92: Hamming distances of
-{0,1} bit-planes (ORB) and L2 distances of float descriptors (SIFT), each
-as one matrix product (|a|^2 + |b|^2 - 2 a.b; the reference left that
+Port of pislamfusion_tpu/ops/matching.py: Hamming distances of {0,1}
+bit-planes (ORB) and L2 distances of float descriptors (SIFT), each as
+one matrix product (|a|^2 + |b|^2 - 2 a.b; the reference left that
 product to XLA, so it stays `torch.matmul` here), then row argmin,
 threshold, optional Lowe ratio and cross-check, under an optional window
-mask.
+or vocabulary-bucket mask (`match_descriptors` and its windowed,
+bucketed and batch variants), and the rotation-histogram filter
+(`rotation_consistency_mask`, MatcherBFMultiH.cpp:296-376).
 """
 from __future__ import annotations
 
 import torch
+
+from .lie import first_argmax
 
 _BIG = 1e9
 
@@ -75,8 +79,96 @@ def match(dist, valid_a, valid_b, max_dist: float, ratio: float = 1.0,
         torch.int32), ok
 
 
-def window_mask(xy_pred, xy_b, radius: float):
-    """[N, M] mask: b within `radius` px of a's predicted location."""
+def window_mask(xy_pred, xy_b, radius):
+    """[N, M] mask: b within `radius` px of a's predicted location;
+    radius a scalar or per row [N]."""
     dx = xy_pred[:, 0:1] - xy_b[None, :, 0]
     dy = xy_pred[:, 1:2] - xy_b[None, :, 1]
-    return (dx * dx + dy * dy) <= radius * radius
+    r = radius[:, None] if isinstance(radius, torch.Tensor) \
+        and radius.ndim == 1 else radius
+    return (dx * dx + dy * dy) <= r * r
+
+
+def rotation_consistency_mask(angle_a, angle_b, idx, valid, bins: int = 30,
+                              keep: int = 3, consecutive: bool = False):
+    """Keep matches whose angle difference falls in the `keep` most popular
+    of `bins` bins. consecutive=False keeps the `keep` individually best
+    bins (the larger count first, the lower bin among equal counts, as
+    `jax.lax.top_k` orders them); consecutive=True keeps the best circular
+    run of `keep` adjacent bins (the first best start)."""
+    diff = angle_a - torch.where(idx >= 0, angle_b[idx.long()],
+                                 torch.zeros_like(angle_a))
+    two_pi = 2.0 * torch.pi
+    diff = torch.remainder(diff, two_pi)
+    bin_idx = torch.clamp((diff * bins / two_pi).to(torch.int32), 0,
+                          bins - 1).long()
+    hist = torch.zeros(bins, dtype=torch.int64, device=diff.device)
+    hist.index_add_(0, bin_idx, valid.to(torch.int64))
+    if consecutive:
+        runs = sum(torch.roll(hist, -k) for k in range(keep))
+        start = first_argmax(runs)
+        in_top = torch.remainder(bin_idx - start, bins) < keep
+    else:
+        top = torch.sort(hist, descending=True, stable=True)[1][:keep]
+        in_top = torch.any(bin_idx[:, None] == top[None, :], -1)
+    return valid & in_top
+
+
+def _default_max_dist(kind, max_dist):
+    if max_dist is None:
+        return 80.0 if kind == "orb" else 0.2
+    return float(max_dist)
+
+
+def match_descriptors(desc_a, valid_a, desc_b, valid_b, kind: str,
+                      max_dist: float | None = None, ratio: float = 1.0,
+                      window=None, cross_check: bool = True):
+    """One-call matcher. kind 'orb' -> Hamming, default threshold 80;
+    kind 'sift' -> L2, default 0.2 (the reference's absolute thresholds).
+    window: an optional [N, M] candidate mask."""
+    dist = distance_matrix(desc_a, desc_b, kind)
+    return match(dist, valid_a, valid_b, _default_max_dist(kind, max_dist),
+                 float(ratio), window, cross_check)
+
+
+def match_descriptors_windowed(desc_a, valid_a, xy_pred, desc_b, valid_b,
+                               xy_b, radius, kind: str,
+                               max_dist: float | None = None,
+                               ratio: float = 1.0,
+                               cross_check: bool = True):
+    """Candidates of a within `radius` px (scalar or per row) of its
+    predicted location xy_pred."""
+    w = window_mask(xy_pred, xy_b, radius)
+    return match_descriptors(desc_a, valid_a, desc_b, valid_b, kind,
+                             max_dist, ratio, w, cross_check)
+
+
+def match_descriptors_bucketed(desc_a, valid_a, nid_a, desc_b, valid_b,
+                               nid_b, kind: str,
+                               max_dist: float | None = None,
+                               ratio: float = 1.0,
+                               cross_check: bool = True):
+    """BoW-bucketed brute force (MatcherBoW.cpp:186-300): candidates share
+    a vocabulary node id (nid_* [N]/[M] int32, -1 = invalid feature),
+    as a dense node-equality mask."""
+    same = (nid_a[:, None] == nid_b[None, :]) & (nid_a >= 0)[:, None]
+    return match_descriptors(desc_a, valid_a, desc_b, valid_b, kind,
+                             max_dist, ratio, same, cross_check)
+
+
+def match_descriptors_batch(desc_a, valid_a, desc_b, valid_b, kind: str,
+                            ratio: float = 0.8):
+    """Many candidate keyframes against one frame: desc_a [K, Na, D],
+    valid_a [K, Na]. Returns (idx [K, Na], ok [K, Na])."""
+    outs = [match_descriptors(da, va, desc_b, valid_b, kind, None, ratio)
+            for da, va in zip(desc_a, valid_a)]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]))
+
+
+def matches_to_pairs(idx, valid):
+    """Dense [N]->[M] assignment to a padded pair list [(ia, ib)] with its
+    mask."""
+    ia = torch.arange(idx.shape[0], dtype=torch.int32, device=idx.device)
+    ib = torch.where(valid, idx.to(torch.int32), torch.zeros_like(ia))
+    return torch.stack([ia, ib], -1), valid

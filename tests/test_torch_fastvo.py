@@ -291,6 +291,15 @@ def test_process_from_a_converted_state_matches_a_fresh_run():
             np.testing.assert_array_equal(a, b)
 
 
+# the modules of the geometric base (camera models, host copies, solvers),
+# which the walk below must reach too
+GEOMETRY_MODULES = (
+    "utils.padding", "utils.host_se3", "core.glog", "core.messenger",
+    "core.resource", "core.gps", "core.camera", "io.native_io", "io.dataset",
+    "ops.lie", "ops.matching", "ops.image", "ops.ransac", "ops.init2view",
+    "ops.multih", "ops.ba", "models.initializers")
+
+
 def test_port_imports_neither_jax_nor_the_reference():
     """In a fresh interpreter (this one has JAX loaded by conftest)."""
     code = (
@@ -298,6 +307,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import pislamfusion_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        f"missing = [m for m in {GEOMETRY_MODULES!r}\n"
+        "           if 'pislamfusion_tpu_torch.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'pislamfusion_tpu' or m.startswith('pislamfusion_tpu.')]\n"
         "assert len([m for m in sys.modules"

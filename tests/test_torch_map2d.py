@@ -30,8 +30,18 @@ is fed the fifth, which is also held to a port engine fed all five; a
 state loads only into an engine of its own Map2D.Type, bands and
 weight_type, with a canvas that fits its tiles. `grow_canvas` is exact,
 and so are the PNG round trip and the copies of the host-only modules.
+
+`read_png` is held to the reference's (PIL's `convert("RGB")`) exactly,
+with PIL and with PIL hidden (the package's own decoder), on PNGs of
+every colour type: palette (with tRNS), 16-bit gray, RGB, gray+alpha and
+RGBA, 1/2/4-bit gray and palette, Adam7-interlaced, each row under a
+filter drawn from a seed (all five, or only None, Sub and Up, the
+decoder's row-wise path).
 """
 import os
+import struct
+import sys
+import zlib
 
 import numpy as np
 import pytest
@@ -340,7 +350,7 @@ def test_grow_canvas_exact():
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
-def test_save_and_read_png_round_trip(world, tmp_path):
+def test_save_and_read_png_round_trip(world, tmp_path, monkeypatch):
     frames, _ = world
     m = _port("weighted")
     assert m.prepare(PLANE, Camera(*CAM), [(None, p) for p in POSES])
@@ -364,7 +374,110 @@ def test_save_and_read_png_round_trip(world, tmp_path):
     other = str(tmp_path / "other.png")
     Image.fromarray(np.cumsum(noisy, 1).astype(np.uint8)).save(
         other, optimize=True)
-    np.testing.assert_array_equal(tmap.read_png(other), jmap.read_png(other))
+    ref = jmap.read_png(other)
+    np.testing.assert_array_equal(tmap.read_png(other), ref)
+    # and both again through the package's own decoder
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    np.testing.assert_array_equal(tmap.read_png(path), crop)
+    np.testing.assert_array_equal(tmap.read_png(other), ref)
+
+
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+_CHANS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def _png_rows(a, depth):
+    """Scanline bytes of samples a [h, w, c] at `depth` bits."""
+    if depth >= 8:
+        return [a[y].astype(">u2" if depth == 16 else np.uint8).tobytes()
+                for y in range(a.shape[0])]
+    per = 8 // depth
+    shifts = np.array([8 - depth * (k + 1) for k in range(per)], np.uint8)
+    rows = []
+    for y in range(a.shape[0]):
+        v = a[y].reshape(-1).astype(np.uint8)
+        v = np.concatenate([v, np.zeros(-len(v) % per, np.uint8)])
+        rows.append((v.reshape(-1, per) << shifts).sum(1).astype(
+            np.uint8).tobytes())
+    return rows
+
+
+def _png_filter(rows, bpp, rng, filters):
+    """Each scanline under a filter type drawn from rng among the first
+    `filters` (PNG spec 9: None, Sub, Up, Average, Paeth)."""
+    out, prev = [], bytes(len(rows[0]))
+    for r in rows:
+        t = int(rng.integers(0, filters))
+        cur = np.frombuffer(r, np.uint8).astype(np.int32)
+        up = np.frombuffer(prev, np.uint8).astype(np.int32)
+        a = np.concatenate([np.zeros(bpp, np.int32), cur])[:len(cur)]
+        c = np.concatenate([np.zeros(bpp, np.int32), up])[:len(cur)]
+        p = a + up - c
+        pa, pb, pc = abs(p - a), abs(p - up), abs(p - c)
+        pred = [0, a, up, (a + up) // 2,
+                np.where((pa <= pb) & (pa <= pc), a,
+                         np.where(pb <= pc, up, c))][t]
+        out.append(bytes([t]) + ((cur - pred) & 255).astype(
+            np.uint8).tobytes())
+        prev = r
+    return out
+
+
+def _write_test_png(path, a, depth, ctype, interlace, palette, seed,
+                    filters):
+    """A PNG of samples a [h, w, c], written by this test's own encoder."""
+    rng = np.random.default_rng(seed)
+    h, w = a.shape[:2]
+    bpp = max(1, depth * _CHANS[ctype] // 8)
+    raw = b""
+    for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
+        sub = a[y0::dy, x0::dx]
+        if sub.size:
+            raw += b"".join(_png_filter(_png_rows(sub, depth), bpp, rng,
+                                        filters))
+
+    def chunk(tag, data):
+        c = struct.pack(">I", len(data)) + tag + data
+        return c + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+
+    png = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
+    if palette is not None:
+        png += chunk(b"PLTE", palette.astype(np.uint8).tobytes())
+        png += chunk(b"tRNS", bytes([0, 128]))
+    png += chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b"")
+    with open(path, "wb") as f:
+        f.write(png)
+
+
+@pytest.mark.parametrize("pil", ["pil", "own_decoder"])
+@pytest.mark.parametrize("depth, ctype, interlace, filters", [
+    (8, 3, 0, 5), (4, 3, 1, 5), (2, 3, 0, 5), (1, 3, 0, 5),  # palette, tRNS
+    (16, 2, 0, 5), (16, 0, 0, 5), (16, 6, 1, 5),             # 16-bit
+    (8, 4, 0, 5), (16, 4, 0, 5),                             # gray + alpha
+    (8, 2, 1, 5), (8, 6, 1, 5), (8, 0, 1, 5),                # Adam7
+    (1, 0, 0, 5), (2, 0, 1, 5), (4, 0, 0, 5),                # low-bit gray
+    (8, 2, 0, 3), (16, 6, 1, 3), (2, 3, 0, 3),   # None, Sub and Up rows only
+], ids=lambda v: str(v))
+def test_read_png_reads_what_the_reference_reads(depth, ctype, interlace,
+                                                 filters, pil, tmp_path,
+                                                 monkeypatch):
+    rng = np.random.default_rng(depth * 10 + ctype)
+    top = (1 << depth) - 1
+    a = rng.integers(0, top + 1, (21, 19, _CHANS[ctype]))
+    if depth == 16:     # 16-bit gray is clipped at 255 on the way to RGB
+        a[0, :6, 0] = [0, 1, 100, 255, 256, 300]
+    palette = (rng.integers(0, 256, (top + 1, 3)) if ctype == 3 else None)
+    path = str(tmp_path / "t.png")
+    _write_test_png(path, a, depth, ctype, interlace, palette, seed=depth,
+                    filters=filters)
+    ref = jmap.read_png(path)
+    if pil == "own_decoder":
+        monkeypatch.setitem(sys.modules, "PIL", None)
+    got = tmap.read_png(path)
+    assert got.dtype == np.uint8 and got.shape == (21, 19, 3)
+    np.testing.assert_array_equal(got, ref)
 
 
 def test_factory_and_defaults():

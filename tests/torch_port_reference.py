@@ -161,3 +161,130 @@ def torch_one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def jax_solver_chain(feats, poses, fx, W, H, iters=256, mh_iters=192,
+                     ba_iters=10, seed=0, key=0, tol_run=True):
+    """The JAX package's counterpart of `chip_smoke.solver_chain`, on the
+    port's ORB features (`feats`: one dict of numpy arrays a frame, the
+    port's `orb_detect` outputs), with the JAX package's own keys.
+
+    Returns (results, draws): results in `solver_chain`'s layout (numpy
+    and the JAX package's named tuples; `chip_smoke.chain_summary` reads
+    them), and the sample indices and Gumbel noise each of its RANSACs
+    drew, by `chip_smoke.Draws` name, so that the port's chain can be
+    handed the same samples. tol_run=False skips BA's tol > 0 run (its
+    results are then the tol = 0 run's)."""
+    import jax
+    import jax.numpy as jnp
+
+    import chip_smoke
+    from pislamfusion_tpu.core.camera import Camera
+    from pislamfusion_tpu.core.svar import Svar
+    from pislamfusion_tpu.models.initializers import create_initializer
+    from pislamfusion_tpu.ops import ba, lie, matching, multih, ransac
+
+    J = jnp.asarray
+    K = len(feats)
+    cam = Camera(W, H, fx, fx, W / 2.0, H / 2.0)
+    sigma = 1.0 / fx
+    fa, fb = feats[0], feats[-1]
+    n = fa["xy"].shape[0]
+    keys = jax.random.split(jax.random.PRNGKey(key), 5)
+    draws, r = {}, {}
+
+    def draw(name, k, valid, it, m):
+        draws[name] = np.asarray(ransac._sample_indices(k, n, valid, it, m))
+
+    idx, ok = matching.match_descriptors(J(fa["desc"]), J(fa["valid"]),
+                                         J(fb["desc"]), J(fb["valid"]), "orb")
+    ok = matching.rotation_consistency_mask(J(fa["angle"]), J(fb["angle"]),
+                                            idx, ok)
+    r["idx"], r["ok"] = idx, ok
+    ra = cam.unproject(J(fa["xy"]))
+    rb = cam.unproject(J(fb["xy"])[jnp.where(ok, idx, 0)])
+    cfg = Svar()
+    cfg.set("Initializer", "svd")
+    cfg.set("Initializer.RansacIters", str(iters))
+    ka, kb = jax.random.split(keys[0])
+    draw("init_h", ka, ok, iters, 4)
+    draw("init_f", kb, ok, iters, 8)
+    r["svd"] = create_initializer(cfg)(keys[0], ra[:, :2], rb[:, :2], ok,
+                                       sigma)
+    cfg.set("Initializer", "opt")
+    r["opt"] = create_initializer(cfg)(keys[1], ra[:, :2], rb[:, :2], ok,
+                                       sigma)
+    P = J(np.asarray(poses, np.float32))
+    X, depth = ransac.triangulate(P[0], P[-1], ra, rb)
+    cosp = ransac.parallax_cos(P[0], P[-1], X)
+    tri = (ok & (depth > 0) & jnp.all(jnp.isfinite(X), -1) & (cosp > 0)
+           & (cosp < 0.99998))
+    X = jnp.where(tri[:, None], X, 0.0)
+    r["X"], r["tri"] = X, tri
+    draw("plane", keys[2], tri, iters, 3)
+    r["plane"] = ransac.find_plane(keys[2], X, tri, 1.0, iters)
+    r["pnp"], obs_uv, obs_w = [], [ra[:, :2]], [tri]
+    for i in range(1, K - 1):
+        fi = feats[i]
+        idx_i, ok_i = matching.match_descriptors(
+            J(fa["desc"]), J(fa["valid"]) & tri, J(fi["desc"]),
+            J(fi["valid"]), "orb")
+        p2n = cam.unproject(J(fi["xy"])[jnp.where(ok_i, idx_i, 0)])[:, :2]
+        k = jax.random.fold_in(keys[3], i)
+        k1, k2 = jax.random.split(k)
+        draw(f"pnp{i}_6", k1, ok_i, iters // 2, 6)
+        draw(f"pnp{i}_4", k2, ok_i, iters - iters // 2, 4)
+        r["pnp"].append(ransac.find_pnp(k, X, p2n, ok_i, iters=iters))
+        obs_uv.append(p2n)
+        obs_w.append(ok_i)
+    obs_uv.append(rb[:, :2])
+    obs_w.append(tri)
+    dpose, dX = chip_smoke.ba_start(np.random.default_rng(seed), K, n)
+    T0 = lie.se3_mul(lie.se3_exp(J(dpose)), lie.se3_inv(P))
+    prob = ba.make_problem(
+        T0, np.arange(K) == 0, X + J(dX) * tri[:, None], ~tri,
+        np.repeat(np.arange(K), n), np.tile(np.arange(n), K),
+        jnp.concatenate(obs_uv), jnp.concatenate(obs_w).astype(jnp.float32))
+    hd = float(np.sqrt(5.991) / fx)
+    r["ba_cost0"] = jax.jit(ba._total_cost, static_argnums=1)(prob, hd)
+    r["ba"] = ba.optimize(prob, iters=ba_iters, huber_delta=hd)
+    r["ba_tol"] = ba.optimize(prob, iters=3 * ba_iters, huber_delta=hd,
+                              tol=1e-4) if tol_run else r["ba"]
+    r["sim3"] = ba.fit_sim3(lie.se3_inv(r["ba"][0]), P)
+    draws["multih"] = np.stack([
+        np.asarray(jax.random.gumbel(k, (mh_iters, n)))
+        for k in jax.random.split(keys[4], 4)])
+    r["multih"] = multih.match_multih(
+        keys[4], J(fa["desc"]), J(fa["valid"]), J(fa["xy"]), J(fb["desc"]),
+        J(fb["valid"]), J(fb["xy"]), n_h=4, ransac_iters=mh_iters)
+    return r, draws
+
+
+def _main(argv):
+    """PYTHONPATH=. python tests/torch_port_reference.py solver-chain
+    FILE.npz (from the repository root): the JAX package's solver chain,
+    on the CPU, on the features and poses that
+    scripts/torch_solver_chain.py saved, with its errors against the true
+    poses (the port's runs on the same features are in that script's
+    output)."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import chip_smoke
+    if len(argv) != 2 or argv[0] != "solver-chain":
+        raise SystemExit(_main.__doc__)
+    z = np.load(argv[1])
+    K = int(z["K"])
+    feats = [{k: z[f"{k}{i}"] for k in ("xy", "angle", "desc", "valid")}
+             for i in range(K)]
+    poses = z["poses"]
+    r, _ = jax_solver_chain(feats, poses, float(z["fx"]), int(z["W"]),
+                            int(z["H"]), int(z["iters"]), int(z["mh_iters"]),
+                            int(z["ba_iters"]))
+    s = chip_smoke.chain_summary(r, poses)
+    print("JAX package's chain (CPU) on the port's features: "
+          + chip_smoke.chain_line(s))
+
+
+if __name__ == "__main__":
+    import sys
+    _main(sys.argv[1:])
