@@ -1,4 +1,4 @@
-"""FastVO and Map2D state across the two packages, as numpy.
+"""FastVO, Map2D and SLAM state across the two packages, as numpy.
 
 The system has no weights. Its state is the canvas pyramid (`canvas_lap`,
 `canvas_w`: one [H >> i, W >> i, 3] and one [H >> i, W >> i, 1] float32
@@ -25,6 +25,15 @@ A bundle problem crosses as its arrays in the reference `BAProblem`'s
 field order (`ba_problem_from_numpy`), and a camera as the reference's
 `Camera.parameters()` vector (`camera_to_parameters`,
 `camera_from_parameters`), so both packages can be fed the same problem.
+
+A SLAM's state is its world map: the frames (ids, poses, keyframe flags,
+connections, keypoint -> point bindings, GPS and the padded features) and
+the points (positions, descriptors, observations), and, for the next
+frame, the tracker's motion model, status and last frame and the mapper's
+keyframe count, point buffers and plane. `worldmap_to_numpy` reads it
+from either package's `WorldMap` or `SLAM`, `worldmap_from_numpy` makes a
+port `WorldMap` of it, and `load_worldmap_state` puts it into a port
+`SLAM` (or map) so that its next `track` continues the run.
 """
 from __future__ import annotations
 
@@ -260,3 +269,172 @@ def camera_from_parameters(params):
     """The port's camera model of a parameter vector (PinHole, ATAN,
     OpenCV or OCAM by its length, `Camera.from_parameters`)."""
     return Camera.from_parameters(params)
+
+
+# ---------------------------------------------------------------------------
+# SLAM: the world map (and, from a SLAM, the tracker's and the mapper's
+# state that the next frame reads)
+# ---------------------------------------------------------------------------
+
+_FRAME_FEATS = ("xy", "desc", "angle", "octave", "response", "valid")
+_TRACKER_FIELDS = ("ref_kf_id", "motion", "lost_count")
+_MAPPER_FIELDS = ("_kf_count", "_recent_points", "_plane_buffer",
+                  "_plane_sent", "plane_se3", "gps_fitted")
+
+
+def _copy(v):
+    return None if v is None else np.array(v)
+
+
+def _plain(v):
+    """A copy of a list, an array or a scalar field."""
+    if isinstance(v, list):
+        return list(v)
+    if isinstance(v, np.ndarray):
+        return v.copy()
+    return v
+
+
+def _frame_to_numpy(f) -> dict:
+    """One frame of either package as plain values (features through its
+    host views, so a frame whose features are on a device is copied)."""
+    d = {"id": int(f.id), "timestamp": float(f.timestamp),
+         "camera": camera_to_parameters(f.camera),
+         "pose_c2w": np.array(f.pose_c2w, np.float32),
+         "is_keyframe": bool(f.is_keyframe), "desc_kind": f.desc_kind,
+         "kp2mp": _copy(f.kp2mp), "connections": dict(f.connections),
+         "gps_lla": _copy(f.gps_lla), "gps_enu": _copy(f.gps_enu),
+         "gps_acc": float(f.gps_acc), "pyr": _copy(f.pyr),
+         "height_ground": f.height_ground, "image": _copy(f.image),
+         "color": _copy(f.color)}
+    has = f.n_kp > 0
+    for k in _FRAME_FEATS:
+        d[k] = _copy(getattr(f, k)) if has else None
+    return d
+
+
+def worldmap_to_numpy(slam_or_map) -> dict:
+    """A WorldMap of either package (or a SLAM, whose map it reads) as
+    numpy: {"frames": [frame dicts: id, timestamp, camera parameters,
+    pose_c2w, is_keyframe, desc_kind, kp2mp, connections, GPS, image and
+    the padded features xy/desc/angle/octave/response/valid], "points":
+    [point dicts: id, position, descriptor, normal, color, ref_frame,
+    observations, bad, created_at_kf], "keyframe_ids", "next_fid",
+    "next_pid"}. From a SLAM it also holds "tracker" (status, ref_kf_id,
+    motion, lost_count and the last frame) and "mapper" (its keyframe
+    count, recent and plane-buffer point ids, plane and GPS state)."""
+    wmap = getattr(slam_or_map, "map", None) or slam_or_map
+    with wmap._lock:
+        state = {
+            "frames": [_frame_to_numpy(f) for f in wmap._frames.values()],
+            "points": [{
+                "id": int(p.id),
+                "position": np.array(p.position, np.float32),
+                "descriptor": np.array(p.descriptor),
+                "normal": np.array(p.normal, np.float32),
+                "color": np.array(p.color, np.uint8),
+                "ref_frame": int(p.ref_frame),
+                "observations": dict(p.observations), "bad": bool(p.bad),
+                "created_at_kf": int(p.created_at_kf)}
+                for p in wmap._points.values()],
+            "keyframe_ids": list(wmap._keyframe_ids),
+            "next_fid": int(wmap._next_fid),
+            "next_pid": int(wmap._next_pid)}
+    tracker = getattr(slam_or_map, "tracker", None)
+    if tracker is not None:
+        st = {k: _plain(getattr(tracker, k)) for k in _TRACKER_FIELDS}
+        st["status"] = tracker.status.name
+        last = tracker.last_frame
+        st["last_frame"] = None if last is None else _frame_to_numpy(last)
+        state["tracker"] = st
+        mapper = slam_or_map.mapper
+        state["mapper"] = {k: _plain(getattr(mapper, k))
+                           for k in _MAPPER_FIELDS}
+    return state
+
+
+def _frame_from_numpy(d, device):
+    from .models.frame import Frame
+    f = Frame(id=d["id"], timestamp=d["timestamp"],
+              camera=camera_from_parameters(d["camera"]),
+              image=_copy(d.get("image")), color=_copy(d.get("color")))
+    f.pose_c2w = np.array(d["pose_c2w"], np.float32)
+    f.is_keyframe = d["is_keyframe"]
+    f.desc_kind = d["desc_kind"]
+    f.connections = dict(d["connections"])
+    for k in ("gps_lla", "gps_enu", "pyr"):
+        setattr(f, k, _copy(d[k]))
+    f.gps_acc = d["gps_acc"]
+    f.height_ground = d["height_ground"]
+    if d["xy"] is not None:
+        feats = {k: d[k] for k in _FRAME_FEATS}
+        f.set_features(feats, d["desc_kind"])
+        if device is not None:
+            f.feats_dev = {k: torch.from_numpy(np.array(f._feats[k])).to(
+                device) for k in _FRAME_FEATS}
+    f.kp2mp = _copy(d["kp2mp"])
+    return f
+
+
+def worldmap_from_numpy(state: dict, device=None):
+    """A port WorldMap from `worldmap_to_numpy`'s state. Each frame gets
+    host features and, on `device` (None means `cuda`, see
+    `resolve_device`), device copies of them, as the port's tracker leaves
+    them."""
+    from .models.worldmap import WorldMap
+    wmap = WorldMap()
+    _fill_worldmap(wmap, state, resolve_device(device))
+    return wmap
+
+
+def _fill_worldmap(wmap, state, device):
+    from .models.frame import MapPoint
+    with wmap.update_lock, wmap._lock:
+        wmap._frames.clear()
+        wmap._points.clear()
+        wmap._keyframe_ids.clear()
+        wmap._kf_center_cache = None
+        wmap.version += 1
+        for d in state["frames"]:
+            f = _frame_from_numpy(d, device)
+            wmap._frames[f.id] = f
+        wmap._keyframe_ids.extend(state["keyframe_ids"])
+        for d in state["points"]:
+            mp = MapPoint(id=d["id"], position=_copy(d["position"]),
+                          descriptor=_copy(d["descriptor"]),
+                          normal=_copy(d["normal"]), color=_copy(d["color"]),
+                          ref_frame=d["ref_frame"],
+                          observations=dict(d["observations"]),
+                          bad=d["bad"], created_at_kf=d["created_at_kf"])
+            wmap._points[mp.id] = mp
+        wmap._next_fid = state["next_fid"]
+        wmap._next_pid = state["next_pid"]
+
+
+def load_worldmap_state(slam_or_map, state: dict):
+    """Replace the contents of a port WorldMap (in place, so modules that
+    hold it keep it) with `worldmap_to_numpy`'s state. For a port SLAM,
+    its modules are made first (on its device), and the state's tracker
+    and mapper entries, when present, are copied into them, so its next
+    `track` continues the captured run. Returns slam_or_map."""
+    slam = slam_or_map if hasattr(slam_or_map, "tracker") else None
+    if slam is not None:
+        slam._ensure_modules()
+        wmap, device = slam.map, slam.device
+    else:
+        wmap, device = slam_or_map, None
+    _fill_worldmap(wmap, state, device)
+    if slam is not None and "tracker" in state:
+        from .models.tracker import Status
+        tr, st = slam.tracker, state["tracker"]
+        for k in _TRACKER_FIELDS:
+            setattr(tr, k, _plain(st[k]))
+        tr.status = Status[st["status"]]
+        last = st["last_frame"]
+        tr.last_frame = None if last is None else (
+            wmap.frame(last["id"]) or _frame_from_numpy(last, device))
+        tr.last_prev = None
+        tr.invalidate_local_stage()
+        for k, v in state["mapper"].items():
+            setattr(slam.mapper, k, _plain(v))
+    return slam_or_map

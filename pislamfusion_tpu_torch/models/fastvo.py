@@ -36,19 +36,13 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..ops import ba, image as im, lie, matching
+from ..ops import ba, image as im, lie
 from ..ops import mosaic as M
 from ..ops.features import orb, sift
+from . import pipeline
 
 ELE = M.ELE_PIXELS
 LM_ITERS = 8            # pose-LM iterations per frame (fastvo.py:179-183)
-MAX_HAMMING = 80.0      # ORB match threshold (fastvo.py:159-162)
-MAX_L2 = 0.2            # SIFT match threshold (fastvo.py:159-162)
-
-
-def _mark(mark, stage: str):
-    if mark is not None:
-        mark(stage)
 
 
 class FastVO(torch.nn.Module):
@@ -98,10 +92,8 @@ class FastVO(torch.nn.Module):
         if detector == "orb":
             self.params = orb.OrbParams(n_features=n_features,
                                         n_levels=n_levels)
-            self.max_dist = MAX_HAMMING
         elif detector == "sift":
             self.params = sift.SiftParams(n_features=n_features)
-            self.max_dist = MAX_L2
         else:
             raise ValueError(f"detector must be 'orb' or 'sift', not "
                              f"{detector!r}")
@@ -177,29 +169,16 @@ class FastVO(torch.nn.Module):
         prev_valid, prev_p3d, pose_prev2, pose_est). Returns (new carry,
         (pose_new, n_match))."""
         cam = self.cam
-        N = self.params.n_features
         fx, fy, cx, cy = cam.fx, cam.fy, cam.cx, cam.cy
         prev_desc, prev_valid, prev_p3d, pose_prev2, pose_est = carry
         # constant-velocity prediction (TrackerOpt::trackLastFrame)
         pose_pred = lie.se3_mul(
             lie.se3_mul(pose_est, lie.se3_inv(pose_prev2)), pose_est)
         T_pred = lie.se3_inv(pose_pred)
-        pc = lie.se3_apply(T_pred.expand(prev_p3d.shape[0], 7), prev_p3d)
-        z = torch.clamp(pc[:, 2], min=1e-6)
-        pix = torch.stack([fx * pc[:, 0] / z + cx, fy * pc[:, 1] / z + cy],
-                          -1)
-        wmask = matching.window_mask(pix, feats["xy"], self.window_radius)
-        dist = matching.distance_matrix(prev_desc, feats["desc"],
-                                        self.detector)
-        idx, ok = matching.match(dist, prev_valid, feats["valid"],
-                                 max_dist=self.max_dist, window_mask=wmask)
-        tgt = torch.where(ok, idx.to(torch.int64), N)
-        # matched points carried to the new feature order: onehot[i, j] = 1
-        # iff prev feature i matched new feature j
-        onehot = (tgt[:, None] == torch.arange(
-            N, device=tgt.device)[None, :]).to(torch.float32)
-        p3d = onehot.T @ prev_p3d
-        wgt = onehot.T @ ok.to(torch.float32)
+        pix, _ = pipeline.project(T_pred, prev_p3d, fx, fy, cx, cy)
+        # matched points carried to the new feature order
+        _, ok, p3d, wgt = pipeline.match_to_slots(
+            pix, prev_desc, prev_valid, prev_p3d, feats, self.window_radius)
         rays_xy = torch.stack([(feats["xy"][:, 0] - cx) / fx,
                                (feats["xy"][:, 1] - cy) / fy], -1)
         T_ref, _, _ = ba.optimize_pose(T_pred, p3d, rays_xy, wgt,
@@ -215,23 +194,7 @@ class FastVO(torch.nn.Module):
         detector's three stages; `mark(stage)` as each is enqueued."""
         rgb = rgb.to(torch.float32)
         gray = im.rgb_to_gray(rgb) if rgb.ndim == 3 else rgb
-        if self.detector == "sift":
-            stacks = sift.build_stacks(gray, self.params)
-            _mark(mark, "octave_stacks")
-            picks = sift.select_octaves(stacks, self.params)
-            _mark(mark, "extrema_select")
-            feats = sift.describe(stacks, picks, tuple(gray.shape),
-                                  self.params)
-            _mark(mark, "orient_desc")
-            return feats
-        packed, views, offs = orb.build_pyramid(gray, self.params,
-                                                self.pyramid)
-        _mark(mark, "pyramid")
-        picks = orb.select_levels(packed, views, offs, self.params)
-        _mark(mark, "fast_nms_select")
-        feats = orb.descriptor_tail(picks, packed, offs, self.params)
-        _mark(mark, "descriptor_tail")
-        return feats
+        return pipeline._detect(gray, self.params, self.pyramid, mark)
 
     def _step(self, carry, rgb, mark=None):
         """One frame: extract + match + pose LM + mosaic feed. `mark`, when
@@ -239,9 +202,9 @@ class FastVO(torch.nn.Module):
         (chip_smoke.py records a CUDA event there to time the stages)."""
         carry, (pose_new, n_match) = self._track_core(
             carry, self._detect(rgb, mark))
-        _mark(mark, "match_lm")
+        pipeline._mark(mark, "match_lm")
         self._feed(pose_new, rgb.to(torch.float32))
-        _mark(mark, "feed")
+        pipeline._mark(mark, "feed")
         return carry, (pose_new, n_match)
 
     def initial_carry(self, frame0, pose0):

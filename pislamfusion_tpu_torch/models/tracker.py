@@ -1,0 +1,820 @@
+"""Pose tracker: the per-frame state machine.
+
+Port of pislamfusion_tpu/models/tracker.py, the reference's default tracker
+`opt` (GSLAM-DIYSLAM/src/zhaoyong/TrackerOpt.cpp): Init/Track/Lost states
+(:52-57), two-view bootstrap with baseline check (:508-634), motion-model
+trackLastFrame with window matches + pose-only LM (:636-793), PnP-RANSAC
+relocalization against keyframes (:795-902, 1307-1350), trackLocalMap
+(:1107-1305), and the FOV-overlap keyframe decision vs SLAM.MaxOverlap
+(:1420-1502); with the `demo` tracker and the default relocalizer.
+
+Host code does the bookkeeping in numpy; all per-keypoint work (descriptor
+distance matrices, windowed matching, pose LM, PnP RANSAC, two-view init)
+runs as tensor ops on the tracker's device (`device`, None meaning `cuda`).
+The fused per-frame path (`_track_fused`) enqueues the whole frame's
+matching and both pose LMs and reads ONE packed buffer back. RANSAC samples
+come from a CPU `torch.Generator` seeded `SLAM.Seed`, as the reference's
+key is, so a run on the card and one on the CPU take the same hypotheses.
+
+Not ported here (ROADMAP item 5b): the online K-frame chain (`track_chain`)
+and the tracker variants ransacPnP, planar, testInit, testLoopDetector,
+loadmap and rtsfmInit.
+"""
+from __future__ import annotations
+
+import enum
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core import glog
+from ..core.device import resolve_device
+from ..core.registry import RELOCALIZERS, TRACKERS
+from ..core.timer import timer
+from ..ops import ba, matching, ransac
+from ..utils import host_se3 as hse3
+from ..utils.padding import pad_to
+from .frame import Frame, MapPoint
+from .pipeline import fused_extract, fused_track_packed_feats
+from .worldmap import WorldMap
+
+LOCAL_POINT_CAP = 2048   # padded local-map size (one shape for matching)
+
+
+class Status(enum.Enum):
+    INIT = 0
+    TRACKING = 1
+    LOST = 2
+
+
+@TRACKERS.register("opt")
+class Tracker:
+    supports_fused = True   # single-readback hot path (TrackerOpt design)
+
+    def __init__(self, wmap: WorldMap, cfg, mapper=None, device=None):
+        self.map = wmap
+        self.cfg = cfg
+        self.mapper = mapper
+        self.device = resolve_device(device)
+        self.status = Status.INIT
+        self.ref_frame: Optional[Frame] = None    # init reference
+        self.ref_kf_id: int = -1
+        self.last_frame: Optional[Frame] = None
+        self.motion = np.array([0, 0, 0, 0, 0, 0, 1.0], np.float32)
+        self.lost_count = 0
+        self.generator = torch.Generator().manual_seed(
+            cfg.get_int("SLAM.Seed", 0))
+        self.max_overlap = cfg.get_double("SLAM.MaxOverlap", 0.95)
+        self.loop_detector = None   # wired by SLAM for relocalization
+        self.matcher = None         # lazy MATCHERS.create (Matcher?= cfg)
+        self._initializer = None    # lazy INITIALIZERS.create (Initializer?=)
+        self.detector = None        # wired by SLAM (feature extractor)
+        self.use_fused = False      # wired by SLAM (ORB/SIFT + SLAM.Fused)
+        self._local_stage = None    # staged local-map tensors (device)
+        self.min_inliers = cfg.get_int("SLAM.MinTrackInliers", 30)
+        # matching thresholds (MatcherBoW.cpp:133-174)
+        self.chi2_px = cfg.get_double("SLAM.Chi2Threshold", 5.991)
+        # stage toggles (TrackerOpt.cpp:638, :1109-1110)
+        self._track_last = not cfg.get_bool("DisableTrackLastFrame", False)
+        self._track_submap = cfg.get_bool("EnableTrackSubMap", True)
+
+    def _t(self, a, dtype=None):
+        """A host array as a tensor on the tracker's device."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.to(self.device, dtype)
+
+    def on_map_transformed(self, S: np.ndarray):
+        """The mapper applied a global SIM3 (GPS fit): frame objects are
+        already updated in place; only the cached relative motion needs its
+        translation rescaled (t_rel' = s * t_rel, rotation unchanged)."""
+        self.motion = self.motion.copy()
+        self.motion[:3] *= float(S[7])
+        self.invalidate_local_stage()   # staged point cloud moved
+
+    def _relocalizer(self):
+        """Named Relocalizer seam (Relocalizer.h:16-28); the `Relocalizer`
+        cfg key resolves a named strategy, defaulting to the
+        tracker-internal sweep."""
+        if getattr(self, "_reloc", None) is None:
+            name = self.cfg.get_string("Relocalizer", "demo")
+            try:
+                self._reloc = RELOCALIZERS.create(name, self.cfg)
+            except Exception as exc:                       # noqa: BLE001
+                # loud fallback: a typo'd name or a broken user strategy
+                # must not silently swap in the default for the whole run
+                glog.logger.error(
+                    "Relocalizer=%r failed to construct (%s); using the "
+                    "default tracker sweep" % (name, exc))
+                self._reloc = RelocalizerDemo(self.cfg)
+        return self._reloc
+
+    def invalidate_local_stage(self):
+        self._local_stage = None
+
+    def predispatch_extract(self, frame: Frame):
+        """Upload the raw frame and enqueue its feature extraction without
+        waiting; the features stay on the device (`frame.feats_dev`)."""
+        if not self.use_fused or self.detector is None:
+            return
+        if frame.feats_dev is not None or frame._feats is not None:
+            return
+        with timer.scope("Tracker::predispatch"):
+            img_dev = self._t(np.asarray(frame.image))  # raw dtype
+            feats = fused_extract(img_dev, self.detector.params,
+                                  self.detector.pyramid)
+            frame.set_features_device(feats, self.detector.kind)
+
+    def ensure_features(self, frame: Frame):
+        """Extract features on demand (the fused path extracts on the
+        device without a host copy; every other path needs them host-side
+        first, through the frame's ONE packed copy)."""
+        if frame.desc is None and self.detector is not None:
+            with timer.scope("Tracker::extract"):
+                img = self._t(np.asarray(frame.image), torch.float32)
+                feats = fused_extract(img, self.detector.params,
+                                      self.detector.pyramid)
+                frame.set_features_device(feats, self.detector.kind)
+                frame._materialize()
+
+    # ------------------------------------------------------------------ API
+    def track(self, frame: Frame) -> bool:
+        with timer.scope("Tracker::track"), \
+                glog.ScopedLogger(self.cfg, bit=1) as lg:
+            self._log = lg
+            lg << f"frame {frame.id} [{self.status.name}]"
+            if self.status == Status.INIT:
+                self.ensure_features(frame)
+                ok = self._initialize(frame)
+            else:
+                ok = self._track_frame(frame)
+            # frame t-2's device feature buffers are no longer inputs to
+            # any step: free them (keyframes are materialized/released by
+            # the mapper)
+            prev2 = getattr(self, "last_prev", None)
+            if prev2 is not None and prev2 is not self.last_frame \
+                    and not prev2.is_keyframe:
+                prev2.release_device_features()
+            self.last_prev = self.last_frame
+            if ok and self.last_frame is not None:
+                self.motion = hse3.se3_mul(
+                    hse3.se3_inv(self.last_frame.pose_c2w),
+                    frame.pose_c2w).astype(np.float32)
+            self.last_frame = frame
+            lg << (f",inliers {getattr(self, '_n_inliers', 0)},"
+                   f"{'OK' if ok else 'FAIL'}"
+                   f"{',KF' if frame.is_keyframe else ''}")
+            return ok
+
+    # ----------------------------------------------------------- bootstrap
+    def _initialize(self, frame: Frame) -> bool:
+        if self.ref_frame is None or self.ref_frame.n_kp == 0:
+            self.ref_frame = frame
+            return False
+        ref = self.ref_frame
+        idx, ok = self._get_matcher()(self.generator, ref, frame)
+        idxn = idx.cpu().numpy()
+        okn = ok.cpu().numpy()
+        n_match = int(okn.sum())
+        if n_match < self.cfg.get_int("SLAM.MinInitMatches", 100):
+            self.ref_frame = frame
+            return False
+        ra = ref.rays[:, :2]
+        rb = frame.rays[np.where(okn, idxn, 0)][:, :2]
+        sigma = 1.0 / ref.camera.fx
+        res = self._get_initializer()(
+            self.generator, self._t(ra), self._t(rb), self._t(okn),
+            sigma=max(sigma, 1e-4))
+        if not bool(res.ok):
+            return False
+        # monocular gauge: scale so median depth == 1
+        mask = res.mask.cpu().numpy()
+        pts = res.points.cpu().numpy()
+        depths = pts[mask][:, 2]
+        med = float(np.median(depths[depths > 0])) if (depths > 0).any() else 1.0
+        scale = 1.0 / max(med, 1e-6)
+        pts = pts * scale
+        T_c2w = res.T_c2w.cpu().numpy().copy()
+        T_c2w[:3] *= scale
+
+        # build the map: two keyframes + triangulated points
+        ref.pose_c2w = np.array([0, 0, 0, 0, 0, 0, 1.0], np.float32)
+        ref.is_keyframe = True
+        frame.pose_c2w = T_c2w.astype(np.float32)
+        frame.is_keyframe = True
+        self.map.insert_frame(ref)
+        self.map.insert_frame(frame)
+        color_img = ref.color if ref.color is not None else ref.image
+        for i in np.nonzero(mask)[0]:
+            pid = self.map.get_pid()
+            kp_ref = int(i)
+            kp_cur = int(idxn[i])
+            color = np.full(3, 128, np.uint8)
+            if color_img is not None:
+                x, y = ref.xy[kp_ref].astype(int)
+                if 0 <= y < color_img.shape[0] and 0 <= x < color_img.shape[1]:
+                    c = color_img[y, x]
+                    color = (np.full(3, int(c), np.uint8) if np.ndim(c) == 0
+                             else c.astype(np.uint8))
+            mp = MapPoint(id=pid, position=pts[i].astype(np.float32),
+                          descriptor=np.asarray(frame.desc[kp_cur]),
+                          color=color, ref_frame=frame.id)
+            view = pts[i] / max(np.linalg.norm(pts[i]), 1e-9)
+            mp.normal = -view.astype(np.float32)
+            self.map.insert_point(mp)
+            self.map.add_observation(pid, ref.id, kp_ref)
+            self.map.add_observation(pid, frame.id, kp_cur)
+        ref.connections[frame.id] = int(mask.sum())
+        frame.connections[ref.id] = int(mask.sum())
+        self.ref_kf_id = frame.id
+        self.status = Status.TRACKING
+        if self.mapper is not None:
+            self.mapper.on_map_initialized(ref, frame)
+        return True
+
+    # ------------------------------------------------------------ tracking
+    def _track_frame(self, frame: Frame) -> bool:
+        ok = False
+        # the reference's stage toggles (TrackerOpt.cpp:638, :1109-1110):
+        # DisableTrackLastFrame skips last-frame matching entirely (every
+        # frame tracks against the ref keyframe); EnableTrackSubMap=0 skips
+        # the local-map refinement pass
+        track_last = self._track_last
+        track_submap = self._track_submap
+        if track_last and self.status == Status.TRACKING \
+                and self.last_frame is not None:
+            # gate on the HOST cache directly: touching frame.desc would
+            # copy device features to the host. The fused step hard-wires
+            # last-frame + local-map stages, so it only serves the default
+            # toggle combination
+            if self.use_fused and frame._feats is None and track_submap:
+                ok = self._track_fused(frame)
+                if ok:   # fused path already ran the local-map refinement
+                    self.status = Status.TRACKING
+                    self.lost_count = 0
+                    self._maybe_keyframe(frame)
+                    return True
+            else:
+                self.ensure_features(frame)
+                ok = self._track_last_frame(frame)
+        self.ensure_features(frame)
+        if not ok:
+            ok = self._relocalizer().relocalize(self, frame)
+        if ok and track_submap:
+            ok = self._track_local_map(frame)
+        if ok:
+            self.status = Status.TRACKING
+            self.lost_count = 0
+            self._maybe_keyframe(frame)
+        else:
+            self.status = Status.LOST
+            self.lost_count += 1
+            if self.lost_count > self.cfg.get_int("SLAM.LostRestart", 10) \
+                    and self.cfg.get_bool("SLAM.RestartWhenLost", False):
+                self.status = Status.INIT
+                self.ref_frame = None
+        return ok
+
+    def _gather_frame_points(self, src: Frame):
+        """Map points assigned to src's keypoints, aligned to kp index."""
+        pos = np.zeros((src.n_kp, 3), np.float32)
+        has = np.zeros(src.n_kp, bool)
+        for i in np.nonzero(src.kp2mp >= 0)[0]:
+            mp = self.map.point(int(src.kp2mp[i]))
+            if mp is not None and not mp.bad:
+                pos[i] = mp.position
+                has[i] = True
+        return pos, has
+
+    def _stage_local_map(self):
+        """Stage the padded local-map tensors on the device (refreshed after
+        every keyframe / map transform) so the per-frame hot path needs no
+        upload of the cloud."""
+        with self.map.update_lock:   # consistent gauge for the staged cloud
+            stage_version = self.map.version
+            ref = self.map.frame(self.ref_kf_id)
+            local_ids = {self.ref_kf_id}
+            if ref is not None:
+                top = sorted(ref.connections.items(), key=lambda kv: -kv[1])
+                local_ids.update(k for k, _ in top[:10])
+            bound = []
+            for fid in local_ids:
+                fr = self.map.frame(fid)
+                if fr is None or fr.kp2mp is None:
+                    continue
+                bound.append(fr.kp2mp[fr.kp2mp >= 0])
+            pids = (np.unique(np.concatenate(bound)) if bound
+                    else np.zeros(0, np.int64))
+            ids, lpos, ldesc = self.map.point_arrays([int(p) for p in pids])
+        if len(ids) < 30:
+            self._local_stage = None
+            return
+        lpos_p, maskp = pad_to(lpos, LOCAL_POINT_CAP)
+        ldesc_p, _ = pad_to(np.asarray(ldesc), LOCAL_POINT_CAP)
+        ids_p, _ = pad_to(np.asarray(ids, np.int64), LOCAL_POINT_CAP, -1)
+        stage = (self._t(lpos_p), self._t(ldesc_p), self._t(maskp), ids_p)
+        with self.map.update_lock:
+            # publish ONLY if no map transform landed since the locked
+            # read above (every transform bumps version inside its own
+            # locked critical section): assigning unconditionally would
+            # REINSTATE a stale-gauge cloud that invalidate_local_stage()
+            # already nulled
+            self._local_stage = (stage if self.map.version == stage_version
+                                 else None)
+
+    def _track_fused(self, frame: Frame) -> bool:
+        """trackLastFrame + trackLocalMap as ONE enqueued device step
+        (pipeline.fused_track_packed_feats): extraction, matching, and both
+        pose LMs run without a host synchronisation; the host then does
+        index bookkeeping on the one packed result."""
+        last = self.last_frame
+        # copy-free has-features check: touching last.desc would copy the
+        # device features to the host
+        if last is None or last.n_kp == 0 or last.n_tracked() < 20:
+            return False
+        if self._local_stage is None:
+            self._stage_local_map()
+        cam = frame.camera
+        # snapshot the staging inputs ATOMICALLY vs whole-map rewrites: the
+        # stage tuple is read under the SAME lock as the version baseline
+        with timer.scope("Tracker::fusedGather"), self.map.update_lock:
+            map_version = self.map.version
+            stage = self._local_stage
+            if stage is None:   # invalidated since the restage attempt
+                return False
+            pos, has = self._gather_frame_points(last)
+            T_pred_w2c = hse3.se3_inv(hse3.se3_mul(last.pose_c2w,
+                                                   self.motion))
+        radius = self.cfg.get_double("SLAM.WindowRadius", 20.0)
+        r_local = self.cfg.get_double("SLAM.LocalWindowRadius", 8.0)
+        lpos, ldesc, lvalid, ids_p = stage
+        # previous frame's features: reuse its DEVICE tensors when present
+        # (no re-upload), else upload the host copies
+        fd = last.feats_dev
+        if fd is not None:
+            last_desc, last_valid = fd["desc"], fd["valid"]
+        else:
+            last_desc = self._t(last.desc)
+            last_valid = self._t(last.valid)
+        with timer.scope("Tracker::fusedUpload"):
+            # ONE small upload for every per-frame host input
+            aux = np.concatenate([
+                pos.reshape(-1).astype(np.float32),
+                has.astype(np.float32),
+                np.asarray(T_pred_w2c, np.float32)])
+            aux_dev = self._t(aux)
+        with timer.scope("Tracker::fusedDispatch"):
+            if frame.feats_dev is None:
+                # offline mode / first frames: upload + extract now
+                self.predispatch_extract(frame)
+            feats = frame.feats_dev
+            packed = fused_track_packed_feats(
+                feats, last_desc, last_valid, aux_dev,
+                lpos, ldesc, lvalid,
+                fx=cam.fx, fy=cam.fy,
+                cx=cam.cx, cy=cam.cy, width=cam.width, height=cam.height,
+                radius=radius, radius_local=r_local, chi2_th=self.chi2_px)
+            # the frame's features STAY ON THE DEVICE (keyframes copy them
+            # to the host in the mapper; plain frames never do)
+        with timer.scope("Tracker::fusedFetch"):
+            packed = packed.cpu().numpy()   # ONE copy, one synchronisation
+        if self.map.version != map_version:
+            # the map changed gauge while the step was in flight: this
+            # result lives in the OLD gauge
+            self._log << ",staleGauge"
+            return False
+        return self._apply_packed(frame, last, packed, ids_p,
+                                  int(lpos.shape[0]), has)
+
+    def _apply_packed(self, frame: Frame, last: Frame, packed: np.ndarray,
+                      ids_p: np.ndarray, P: int,
+                      prev_has: np.ndarray) -> bool:
+        """Host index bookkeeping for ONE packed result row
+        (pipeline.fused_track_packed_feats layout). prev_has: mask of
+        `last`'s keypoint slots that carried map points when the step's
+        inputs were staged."""
+        cam = frame.camera
+        n = frame.n_kp
+        a = packed[16:16 + 6 * n].reshape(6, n)
+        b = packed[16 + 6 * n:].reshape(2, P)
+        idx1 = a[0].astype(np.int64)
+        ok1 = a[1] > 0.5
+        chi2_1, w1, chi2_2, w2 = a[2], a[3], a[4], a[5]
+        idx2 = b[0].astype(np.int64)
+        ok2 = b[1] > 0.5
+        T2_w2c = packed[8:15]
+        th = self.chi2_px / cam.fx ** 2
+        inl1 = (w1 > 0) & (chi2_1 < th)
+        self._log << f",fused {int(inl1.sum())}"
+        if inl1.sum() < 20:
+            return False
+        inl = (w2 > 0) & (chi2_2 < th)
+        if inl.sum() < self.min_inliers:
+            return False
+        frame.pose_c2w = hse3.se3_inv(T2_w2c).astype(np.float32)
+        # bind current keypoints: last-frame matches first, then local-map
+        # growth matches on still-free slots (mirrors the device merge)
+        frame.kp2mp[:] = -1
+        okp = ok1 & prev_has & (last.kp2mp >= 0)
+        src = np.nonzero(okp)[0]
+        cur = idx1[src]
+        keep = inl[cur]
+        frame.kp2mp[cur[keep]] = last.kp2mp[src[keep]]
+        for p in np.nonzero(ok2)[0]:
+            ci = int(idx2[p])
+            if inl[ci] and frame.kp2mp[ci] < 0 and ids_p[p] >= 0:
+                frame.kp2mp[ci] = int(ids_p[p])
+        frame.kp2mp[~inl] = -1
+        self._n_inliers = int(inl.sum())
+        return True
+
+    def _project_host(self, frame: Frame, T_c2w, pos):
+        """Points pos [P, 3] through the camera at T_c2w: (pixels [P, 2]
+        f32 through the frame's camera model, in front [P] bool)."""
+        pc = hse3.se3_apply(hse3.se3_inv(np.asarray(T_c2w, np.float32)),
+                            pos).astype(np.float32)
+        infront = pc[:, 2] > 1e-3
+        uv = pc[:, :2] / np.maximum(pc[:, 2:], 1e-6)
+        pix = frame.camera.project(
+            np.concatenate([uv, np.ones_like(uv[:, :1])],
+                           -1)).astype(np.float32)
+        return pix, infront
+
+    def _track_last_frame(self, frame: Frame) -> bool:
+        last = self.last_frame
+        if last.n_tracked() < 20:
+            return False
+        T_pred = hse3.se3_mul(last.pose_c2w, self.motion).astype(np.float32)
+        pos, has = self._gather_frame_points(last)
+        # project into predicted view
+        pix, infront = self._project_host(frame, T_pred, pos)
+        radius = self.cfg.get_double("SLAM.WindowRadius", 20.0)
+        idx, ok = matching.match_descriptors_windowed(
+            self._t(last.desc), self._t(has & infront & last.valid),
+            self._t(pix), self._t(frame.desc), self._t(frame.valid),
+            self._t(frame.xy), radius, last.desc_kind)
+        idxn, okn = idx.cpu().numpy(), ok.cpu().numpy()
+        if okn.sum() < 20:
+            return False
+        return self._solve_pose(frame, T_pred, pos, has, idxn, okn, last)
+
+    def _solve_pose(self, frame, T_init_c2w, pos, has, idxn, okn, src_frame):
+        """Pose-only LM from (src kp -> cur kp) matches; assigns kp2mp."""
+        n = frame.n_kp
+        p3d = np.zeros((n, 3), np.float32)
+        w = np.zeros(n, np.float32)
+        src_of_cur = np.full(n, -1, np.int64)
+        sel = np.nonzero(okn & has)[0]
+        cur_idx = idxn[sel]
+        p3d[cur_idx] = pos[sel]
+        w[cur_idx] = 1.0
+        src_of_cur[cur_idx] = sel
+        p2n = frame.rays[:, :2]
+        T, cost, chi2 = ba.optimize_pose(
+            self._t(hse3.se3_inv(np.asarray(T_init_c2w, np.float32)),
+                    torch.float32),
+            self._t(p3d), self._t(p2n), self._t(w),
+            iters=12, huber_delta=float(np.sqrt(self.chi2_px))
+            / frame.camera.fx)
+        # one copy for pose + residuals; invert host-side
+        both = torch.cat([T, chi2]).cpu().numpy()
+        T, chi2 = both[:7], both[7:]
+        th = self.chi2_px / frame.camera.fx ** 2
+        inl = (w > 0) & (chi2 < th)
+        if inl.sum() < self.min_inliers:
+            return False
+        frame.pose_c2w = hse3.se3_inv(T).astype(np.float32)
+        frame.kp2mp[:] = -1
+        for ci in np.nonzero(inl)[0]:
+            frame.kp2mp[ci] = src_frame.kp2mp[src_of_cur[ci]]
+        self._n_inliers = int(inl.sum())
+        return True
+
+    def _track_ref_kf(self, frame: Frame) -> bool:
+        """PnP-RANSAC against the reference keyframe
+        (trackRefKeyframeRansac, :795-902); doubles as relocalization when
+        we also scan recent keyframes."""
+        kfs = self.map.keyframes()
+        candidates = []
+        ref = self.map.frame(self.ref_kf_id)
+        if ref is not None:
+            candidates.append(ref)
+        if self.status == Status.LOST:
+            # relocalization (relocalize(), :1307-1350): loop-detector
+            # candidates first (BoW/appearance when a vocabulary is wired),
+            # then recent keyframes, then a strided sample of the whole map
+            loop_cands = []
+            if self.loop_detector is not None:
+                loop_cands = [self.map.frame(fid) for fid in
+                              self.loop_detector.candidates(frame)[:5]]
+                loop_cands = [k for k in loop_cands if k is not None]
+            recent = kfs[-3:]
+            stride = max(1, len(kfs) // 17)
+            spread = kfs[::stride][:17]
+            seen = set()
+            candidates = []
+            for kf in loop_cands + recent + spread:
+                if kf.id not in seen:
+                    seen.add(kf.id)
+                    candidates.append(kf)
+        self._log << f",refKF x{len(candidates)}"
+        # one batched match prefilters ALL candidates (relocalize(),
+        # :1307-1350). Candidate ORDER is preserved (loop-detector first,
+        # then recent, then spread — the reference's priority), the
+        # precomputed matches just skip hopeless candidates and feed the
+        # PnP loop directly.
+        points = [self._gather_frame_points(kf) for kf in candidates]
+        pre_idx = pre_ok = None
+        base_match = type(self)._ref_kf_match is Tracker._ref_kf_match
+        if len(candidates) > 1:
+            descs = self._t(np.stack([kf.desc for kf in candidates]))
+            valids = self._t(np.stack(
+                [h & kf.valid for kf, (_, h) in zip(candidates, points)]))
+            bi, bo = matching.match_descriptors_batch(
+                descs, valids, self._t(frame.desc), self._t(frame.valid),
+                candidates[0].desc_kind, ratio=0.8)
+            pre_idx, pre_ok = bi.cpu().numpy(), bo.cpu().numpy()
+        for ci, kf in enumerate(candidates):
+            pos, has = points[ci]
+            if pre_ok is not None and base_match:
+                # the base matcher IS the batched ratio-BF — reuse it
+                idxn, okn = pre_idx[ci], pre_ok[ci]
+            else:
+                # conservative prefilter only: an overriding matcher
+                # (demo's multiH growth) recovers matches the ratio-BF
+                # kills, so skip only truly hopeless candidates
+                if pre_ok is not None and pre_ok[ci].sum() < 4:
+                    continue
+                idx, ok = self._ref_kf_match(kf, frame, has)
+                idxn, okn = idx.cpu().numpy(), ok.cpu().numpy()
+            if okn.sum() < 15:
+                continue
+            n = frame.n_kp
+            p3d = np.zeros((n, 3), np.float32)
+            w = np.zeros(n, bool)
+            src_of_cur = np.full(n, -1, np.int64)
+            sel = np.nonzero(okn & has)[0]
+            p3d[idxn[sel]] = pos[sel]
+            w[idxn[sel]] = True
+            src_of_cur[idxn[sel]] = sel
+            res = ransac.find_pnp(self.generator, self._t(p3d),
+                                  self._t(frame.rays[:, :2]), self._t(w),
+                                  threshold=3.0 / frame.camera.fx)
+            if not bool(res.ok):
+                # scarce 3D: mixed epipolar + inverse-depth fallback
+                # (trackRefKeyframe, TrackerOpt.cpp:904-1105)
+                if self._track_ref_kf_epipolar(frame, kf):
+                    # the matched candidate becomes the reference keyframe
+                    # (relocalize(): the local map must re-center on it)
+                    self.ref_kf_id = kf.id
+                    self.invalidate_local_stage()
+                    return True
+                continue
+            T_c2w = hse3.se3_inv(res.model.cpu().numpy())
+            if self._solve_pose(frame, T_c2w, pos, has, idxn, okn, kf):
+                self.ref_kf_id = kf.id
+                self.invalidate_local_stage()
+                return True
+        return False
+
+    def _get_initializer(self):
+        """Lazy Initializer plugin (the reference's `Initializer?=` seam,
+        Initializer.h:22-34): svd (default, H/F RANSAC + cheirality) /
+        opt (joint SE3+inverse-depth epipolar LM) through INITIALIZERS."""
+        if self._initializer is None:
+            from .initializers import create_initializer
+            self._initializer = create_initializer(self.cfg)
+        return self._initializer
+
+    def _get_matcher(self):
+        """Lazy Matcher plugin (the reference's `Matcher?=` seam,
+        Matcher.h): BF / multiH (default, MatcherMultiH.cpp) / BFMultiH
+        through the MATCHERS registry, on the tracker's device."""
+        if self.matcher is None:
+            from ..core.registry import MATCHERS
+            from . import matchers as _matchers               # noqa: F401
+            name = self.cfg.get_string("Matcher", "multiH")
+            try:
+                self.matcher = MATCHERS.create(name, self.cfg,
+                                               device=self.device)
+            except KeyError:
+                # reference configs name matcher variants this build
+                # collapses; run the BF baseline instead of crashing
+                # two-view init
+                from ..core.glog import logger
+                logger.warning(f"Matcher '{name}' unknown; using BF")
+                self.matcher = MATCHERS.create("BF", self.cfg,
+                                               device=self.device)
+        return self.matcher
+
+    def _ref_kf_match(self, kf: Frame, frame: Frame, has) -> tuple:
+        """Keyframe-candidate matching seam: 'opt' restricts to keypoints
+        WITH map points (only they constrain PnP; ratio-BF, the cheap
+        choice for the up-to-25-candidate LOST sweep)."""
+        return matching.match_descriptors(
+            self._t(kf.desc), self._t(has & kf.valid),
+            self._t(frame.desc), self._t(frame.valid),
+            kf.desc_kind, ratio=0.8)
+
+    def _track_ref_kf_epipolar(self, frame: Frame, kf: Frame) -> bool:
+        """Mixed PnP + epipolar pose vs a keyframe: 2D-2D matches carry
+        per-match inverse-depth unknowns, the few 3D anchors pin the scale
+        (TrackerOpt::trackRefKeyframe :904-1105 + optimizePose's
+        EdgeSE3InvDepth edges)."""
+        idx, ok = matching.match_descriptors(
+            self._t(kf.desc), self._t(kf.valid),
+            self._t(frame.desc), self._t(frame.valid),
+            kf.desc_kind, ratio=0.8)
+        idxn, okn = idx.cpu().numpy(), ok.cpu().numpy()
+        if okn.sum() < 40:
+            return False
+        pos, has = self._gather_frame_points(kf)
+        # anchors: matched kf keypoints WITH map points
+        anchor = okn & has
+        if anchor.sum() < 3:
+            return False
+        rays_cur = frame.rays[np.where(okn, idxn, 0)][:, :2]
+        w2d = (okn & ~has).astype(np.float32)
+        w3d = anchor.astype(np.float32)
+        # inverse-depth init: anchors use true depth, rest the median
+        pc = hse3.se3_apply(hse3.se3_inv(kf.pose_c2w), pos)
+        depths = np.where(has & (pc[:, 2] > 0.1), pc[:, 2], np.nan)
+        med = np.nanmedian(depths) if np.isfinite(depths).any() else 1.0
+        idepth0 = np.where(np.isfinite(depths), 1.0 / np.maximum(
+            depths, 1e-6), 1.0 / max(med, 1e-6)).astype(np.float32)
+        kf_pose = np.asarray(kf.pose_c2w, np.float32)
+        T, cost, q, chi2_2d, chi2_3d = ba.optimize_pose_invdepth(
+            self._t(hse3.se3_inv(kf_pose), torch.float32),
+            self._t(kf_pose), self._t(kf.rays[:, :2]), self._t(rays_cur),
+            self._t(w2d), self._t(idepth0),
+            self._t(pos), self._t(rays_cur), self._t(w3d),
+            iters=15,
+            huber_delta=float(np.sqrt(self.chi2_px)) / frame.camera.fx)
+        th = self.chi2_px / frame.camera.fx ** 2
+        inl2 = (w2d > 0) & (chi2_2d.cpu().numpy() < th)
+        inl3 = (w3d > 0) & (chi2_3d.cpu().numpy() < th)
+        if inl2.sum() + 2 * inl3.sum() < self.min_inliers:
+            return False
+        frame.pose_c2w = hse3.se3_inv(T.cpu().numpy()).astype(np.float32)
+        frame.kp2mp[:] = -1
+        for s in np.nonzero(inl3)[0]:
+            frame.kp2mp[idxn[s]] = kf.kp2mp[s]
+        self._n_inliers = int(inl2.sum() + inl3.sum())
+        return True
+
+    def _track_local_map(self, frame: Frame) -> bool:
+        """Project the local map into the frame and refine
+        (trackLocalMap, :1107-1305)."""
+        ref = self.map.frame(self.ref_kf_id)
+        local_ids = {self.ref_kf_id}
+        if ref is not None:
+            top = sorted(ref.connections.items(), key=lambda kv: -kv[1])
+            local_ids.update(k for k, _ in top[:10])
+        pids = set()
+        for fid in local_ids:
+            fr = self.map.frame(fid)
+            if fr is None or fr.kp2mp is None:
+                continue
+            pids.update(int(p) for p in fr.kp2mp[fr.kp2mp >= 0])
+        ids, pos, desc = self.map.point_arrays(sorted(pids))
+        if len(ids) < 30:
+            return frame.n_tracked() >= self.min_inliers
+        pos_p, maskp = pad_to(pos, LOCAL_POINT_CAP)
+        desc_p, _ = pad_to(np.asarray(desc), LOCAL_POINT_CAP)
+        ids_p, _ = pad_to(np.asarray(ids, np.int64), LOCAL_POINT_CAP, -1)
+        # project with current pose
+        pix, infront = self._project_host(frame, frame.pose_c2w, pos_p)
+        inview = frame.camera.in_view(pix)
+        pvalid = maskp & infront & inview
+        radius = self.cfg.get_double("SLAM.LocalWindowRadius", 8.0)
+        wmask = matching.window_mask(self._t(pix), self._t(frame.xy),
+                                     radius)
+        idx, ok = matching.match_descriptors(
+            self._t(desc_p), self._t(pvalid),
+            self._t(frame.desc), self._t(frame.valid),
+            frame.desc_kind, window=wmask)
+        idxn, okn = idx.cpu().numpy(), ok.cpu().numpy()
+        # merge: point -> cur kp assignments (keep existing from track_last)
+        n = frame.n_kp
+        p3d = np.zeros((n, 3), np.float32)
+        w = np.zeros(n, np.float32)
+        newmp = np.full(n, -1, np.int64)
+        for pi in np.nonzero(okn)[0]:
+            ci = idxn[pi]
+            if frame.kp2mp[ci] < 0 and newmp[ci] < 0:
+                p3d[ci] = pos_p[pi]
+                w[ci] = 1.0
+                newmp[ci] = ids_p[pi]
+        # existing assignments
+        for ci in np.nonzero(frame.kp2mp >= 0)[0]:
+            mp = self.map.point(int(frame.kp2mp[ci]))
+            if mp is not None and not mp.bad:
+                p3d[ci] = mp.position
+                w[ci] = 1.0
+        if (w > 0).sum() < self.min_inliers:
+            return False
+        T, cost, chi2 = ba.optimize_pose(
+            self._t(hse3.se3_inv(frame.pose_c2w), torch.float32),
+            self._t(p3d), self._t(frame.rays[:, :2]), self._t(w),
+            iters=10,
+            huber_delta=float(np.sqrt(self.chi2_px)) / frame.camera.fx)
+        both = torch.cat([T, chi2]).cpu().numpy()
+        T, chi2 = both[:7], both[7:]
+        th = self.chi2_px / frame.camera.fx ** 2
+        inl = (w > 0) & (chi2 < th)
+        if inl.sum() < self.min_inliers:
+            return False
+        frame.pose_c2w = hse3.se3_inv(T).astype(np.float32)
+        for ci in np.nonzero(inl)[0]:
+            if frame.kp2mp[ci] < 0 and newmp[ci] >= 0:
+                frame.kp2mp[ci] = newmp[ci]
+        for ci in np.nonzero(~inl)[0]:
+            frame.kp2mp[ci] = -1
+        self._n_inliers = int(inl.sum())
+        return True
+
+    # ------------------------------------------------------------ keyframe
+    def _maybe_keyframe(self, frame: Frame):
+        """FOV-overlap heuristic (TrackerOpt::addKeyframeIfNeeded,
+        :1420-1502): insert when the view has shifted by more than
+        (1 - MaxOverlap) of the field of view."""
+        ref = self.map.frame(self.ref_kf_id)
+        if ref is None:       # ref KF culled: fall back to the newest KF
+            kfs = self.map.keyframes()
+            if not kfs:
+                return
+            ref = kfs[-1]
+            self.ref_kf_id = ref.id
+        ids, pos, _ = self.map.point_arrays(
+            [int(p) for p in frame.kp2mp[frame.kp2mp >= 0]])
+        med_depth = frame.median_depth(pos) if len(ids) else 1.0
+        rel = hse3.se3_mul(hse3.se3_inv(ref.pose_c2w), frame.pose_c2w)
+        t_shift = float(np.linalg.norm(rel[:3]))
+        ang = 2.0 * np.arccos(min(abs(float(rel[6])), 1.0))
+        fov = 2.0 * np.arctan(0.5 * frame.camera.width / frame.camera.fx)
+        view_extent = 2.0 * np.tan(fov / 2.0) * max(med_depth, 1e-6)
+        change = t_shift / view_extent + ang / fov
+        if change > (1.0 - self.max_overlap):
+            frame.is_keyframe = True
+            self.map.insert_frame(frame)
+            self.ref_kf_id = frame.id
+            # observations are registered by the mapper
+            if self.mapper is not None:
+                self.mapper.insert_keyframe(frame)
+            if self.use_fused and not (
+                    self.mapper is not None
+                    and getattr(self.mapper, "restage_hook", None)):
+                # no mapper hook wired: refresh the fused path's stage here
+                # (with the hook, the MAPPER restages at the end of keyframe
+                # handling, and the stage includes the keyframe's newly
+                # triangulated points)
+                self._stage_local_map()
+
+    def restage_after_kf(self):
+        """Mapper hook: refresh the fused path's staged local map once a
+        keyframe's triangulation/fuse/BA have committed."""
+        if self.use_fused:
+            self._stage_local_map()
+
+
+@TRACKERS.register("demo")
+class TrackerDemo(Tracker):
+    """The reference's simpler 'demo' tracker cascade
+    (GSLAM-DIYSLAM/src/zhaoyong/TrackerDemo.cpp): window-match the last
+    frame's observed map points then pose LM (trackLastFrame :305-450),
+    fall back to the configured two-view Matcher against the reference
+    keyframe using ONLY existing 3D observations + PnP (trackRefKeyframe
+    :452-530 — `match4initialize`, no epipolar inverse-depth recovery),
+    then trackLocalMap (:532-726). Selected with `Tracker?=demo`; the
+    ablation baseline vs 'opt'.
+
+    Inherits the shared state machine and device steps and narrows the
+    cascade — never the fused step, no 2D-2D fallback."""
+
+    supports_fused = False
+
+    def _ref_kf_match(self, kf: Frame, frame: Frame, has):
+        """trackRefKeyframe matches with the FULL configured Matcher
+        (match4initialize, TrackerDemo.cpp:462) — denser than opt's
+        ratio-BF, one multi-H RANSAC heavier."""
+        return self._get_matcher()(self.generator, kf, frame)
+
+    def _track_ref_kf_epipolar(self, frame: Frame, kf: Frame) -> bool:
+        return False   # TrackerDemo has no inverse-depth 2D-2D fallback
+
+
+@RELOCALIZERS.register("demo")
+@RELOCALIZERS.register("default")
+class RelocalizerDemo:
+    """Default named relocalization strategy: the tracker's own LOST
+    sweep (loop-detector candidates -> recent keyframes -> strided map
+    sample, batched match prefilter + PnP — Tracker._track_ref_kf,
+    mirroring TrackerOpt::relocalize, TrackerOpt.cpp:1307-1350). Exists
+    so the reference's Relocalizer registry seam (Relocalizer.h:16-28)
+    resolves by name."""
+
+    def __init__(self, cfg=None):
+        self.cfg = cfg
+
+    def relocalize(self, tracker: "Tracker", frame: Frame) -> bool:
+        return tracker._track_ref_kf(frame)

@@ -193,15 +193,23 @@ HOST_COPY_CHANGES = {
     # the card's machine has no PIL: PNGs through read_png, others through
     # the native decoder, then PIL
     "io/dataset.py": {"imread"},
+    # the device feature dict holds torch tensors: the packing is one
+    # torch.cat (no jit, so no cached jitted packer), the host copy is
+    # `.cpu().numpy()`, and the descriptor dtype test reads a torch dtype
+    "models/frame.py": {"_pack_feats", "_pack_feats_jit", "Frame._materialize",
+                        "Frame.dispatch_pack", "Frame.install_packed"},
 }
 HOST_COPIES = ["utils/padding.py", "utils/host_se3.py", "core/glog.py",
                "core/messenger.py", "core/resource.py", "core/gps.py",
-               "io/native_io.py", "io/dataset.py"]
+               "io/native_io.py", "io/dataset.py", "io/maphash.py",
+               "models/worldmap.py", "models/frame.py",
+               "resources/__init__.py", "resources/orb_vocab.py",
+               "resources/sift_vocab.py"]
 
 
 def _definitions(pkg, rel):
     """{name: ast dump} of a module's top-level statements, imports and
-    docstrings removed."""
+    docstrings removed; a class's members also as "Class.member"."""
     with open(os.path.join(REPO, pkg, rel)) as f:
         tree = ast.parse(f.read())
 
@@ -228,6 +236,13 @@ def _definitions(pkg, rel):
         else:
             name = f"#{i}"
         out[name] = ast.dump(s)
+        if isinstance(s, ast.ClassDef):
+            for j, m in enumerate(s.body):
+                target = getattr(m, "target", None) or (
+                    m.targets[0] if isinstance(m, ast.Assign) else None)
+                member = getattr(m, "name", None) or getattr(
+                    target, "id", None) or f"#{j}"
+                out[f"{name}.{member}"] = ast.dump(m)
     return out
 
 
@@ -236,10 +251,13 @@ def test_host_copy_equals_its_original(rel):
     ref = _definitions("pislamfusion_tpu", rel)
     port = _definitions("pislamfusion_tpu_torch", rel)
     changed = HOST_COPY_CHANGES.get(rel, set())
-    assert set(port) - changed == set(ref) - changed
-    for name in set(ref) - changed:
+    # a class with a changed member differs as a whole; its other members
+    # are compared one by one
+    skip = changed | {n.split(".")[0] for n in changed if "." in n}
+    assert set(port) - skip == set(ref) - skip
+    for name in set(ref) - skip:
         assert port[name] == ref[name], f"{rel}: {name} differs"
-    assert changed <= set(port)
+    assert changed <= set(port) | set(ref)
 
 
 def test_gps_and_host_se3_give_the_reference_results():

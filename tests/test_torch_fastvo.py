@@ -291,13 +291,18 @@ def test_process_from_a_converted_state_matches_a_fresh_run():
             np.testing.assert_array_equal(a, b)
 
 
-# the modules of the geometric base (camera models, host copies, solvers),
+# the modules of the geometric base (camera models, host copies, solvers)
+# and of SLAM (state, vocabulary, map file, tracker, mapper, loop closing),
 # which the walk below must reach too
 GEOMETRY_MODULES = (
     "utils.padding", "utils.host_se3", "core.glog", "core.messenger",
     "core.resource", "core.gps", "core.camera", "io.native_io", "io.dataset",
     "ops.lie", "ops.matching", "ops.image", "ops.ransac", "ops.init2view",
-    "ops.multih", "ops.ba", "models.initializers")
+    "ops.multih", "ops.ba", "models.initializers", "models.frame",
+    "models.worldmap", "models.matchers", "models.pipeline",
+    "models.tracker", "models.mapper", "models.loopclose", "models.slam",
+    "ops.vocabulary", "io.maphash", "resources.orb_vocab",
+    "resources.sift_vocab")
 
 
 def test_port_imports_neither_jax_nor_the_reference():

@@ -260,16 +260,201 @@ def jax_solver_chain(feats, poses, fx, W, H, iters=256, mh_iters=192,
     return r, draws
 
 
+SLAM_CAM = (320, 240, 260.0, 260.0, 160.0, 120.0)
+SLAM_STAGE_FRAME = 3     # the second keyframe after the two-view set-up
+
+
+def slam_survey_frames(n=None):
+    """tests/test_slam.py's survey (seed 11, 320x240, 36 nadir frames),
+    rendered by the port's warp on the CPU (equal to the JAX package's
+    render_view): (frames [K, 240, 320, 3] float32, true poses [K, 7])."""
+    import chip_smoke
+    from pislamfusion_tpu_torch.core.camera import Camera
+    ground = torch.from_numpy(chip_smoke.survey_ground(
+        np.random.default_rng(11)))
+    cam = Camera(*SLAM_CAM)
+    poses = chip_smoke.survey_poses()[:n]
+    frames = np.stack([chip_smoke.survey_view(ground, cam, p).numpy()
+                       for p in poses])
+    return frames, poses
+
+
+def _jax_cfg():
+    from pislamfusion_tpu.core.svar import Svar
+    import chip_smoke
+    cfg = Svar()
+    for k, v in chip_smoke.slam_survey_cfg()._data.items():
+        cfg.set(k, v)
+    return cfg
+
+
+def jax_slam_capture():
+    """ONE short run of the JAX package's SLAM on the CPU over frames 0-3
+    of the survey (tests/test_slam.py's config; frame 3 is the second
+    keyframe after the two-view set-up), with what the port's stage tests
+    start from and compare with, all numpy:
+
+    - "frames", "poses": the frames and true poses;
+    - "before": `convert.worldmap_to_numpy` of the SLAM before frame 3;
+    - "track": frame 3's fused tracking step, its inputs (the frame's
+      features, the last frame's descriptors, aux, the staged local map)
+      and the JAX outputs of `fused_track_packed_feats` and
+      `fused_localmap_step` (from the first LM's bindings);
+    - "new_points": the map before frame 3's triangulation sweep, the
+      mapper's keyframe count and the points it created (kp -> position);
+    - "windows": every local BA window solved (arguments and results);
+    - "after": the SLAM after frame 3, its map saved as .maphash bytes;
+    - "close": `LoopCloserSE3Graph._close` on the after-map (frame 3 onto
+      keyframe 0 with a given correction): poses and points after;
+    - "gps": `Mapper.fit_gps_all` on the after-map with each keyframe's
+      true centre as its ENU fix: poses after, and the fit's rms."""
+    import tempfile
+
+    import jax.numpy as jnp
+    from pislamfusion_tpu.core.camera import Camera
+    from pislamfusion_tpu.models import mapper as jm
+    from pislamfusion_tpu.models import pipeline as jp
+    from pislamfusion_tpu.models.loopclose import LoopCloserSE3Graph
+    from pislamfusion_tpu.models.slam import create_slam
+    from pislamfusion_tpu.models.worldmap import WorldMap
+    from pislamfusion_tpu.utils import host_se3 as hse3
+    from pislamfusion_tpu_torch import convert
+
+    frames, poses = slam_survey_frames(SLAM_STAGE_FRAME + 1)
+    cfg = _jax_cfg()
+    slam = create_slam(cfg, Camera(*SLAM_CAM))
+    out = {"frames": frames, "poses": poses, "windows": []}
+    solve = jm.Mapper.solve_local_window
+
+    def record_window(*a, **k):
+        res = solve(*a, **k)
+        kw = {n: k[n] for n in ("iters", "huber_delta", "tol", "prior_kw")
+              if n in k}
+        out["windows"].append((a[:7], kw, res))
+        return res
+
+    jm.Mapper.solve_local_window = staticmethod(record_window)
+    try:
+        for i in range(SLAM_STAGE_FRAME):
+            slam.track(frames[i], float(i))
+        out["before"] = convert.worldmap_to_numpy(slam)
+        tr, mapper = slam.tracker, slam.mapper
+        # frame 3's fused step, from the tracker's own inputs
+        last = tr.last_frame
+        if tr._local_stage is None:
+            tr._stage_local_map()
+        lpos, ldesc, lvalid, ids_p = tr._local_stage
+        pos, has = tr._gather_frame_points(last)
+        T_pred = hse3.se3_inv(hse3.se3_mul(last.pose_c2w, tr.motion))
+        aux = np.concatenate([pos.reshape(-1), has.astype(np.float32),
+                              np.asarray(T_pred, np.float32)]).astype(
+                                  np.float32)
+        feats = jp.fused_extract(jnp.asarray(frames[SLAM_STAGE_FRAME]),
+                                 tr.detector.params)
+        cam = last.camera
+        geo = dict(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
+                   width=cam.width, height=cam.height)
+        packed = jp.fused_track_packed_feats(
+            feats, jnp.asarray(last.desc), jnp.asarray(last.valid),
+            jnp.asarray(aux), lpos, ldesc, lvalid, radius=20.0,
+            radius_local=8.0, chi2_th=5.991, **geo)
+        # the first LM's bindings, read from the packed row (layout:
+        # pipeline.fused_track_packed_feats)
+        n = last.n_kp
+        pk = np.asarray(packed)
+        a = pk[16:16 + 6 * n].reshape(6, n)
+        idx, ok = a[0].astype(np.int64), a[1] > 0.5
+        p3d_cur = np.zeros((n, 3), np.float32)
+        p3d_cur[idx[ok]] = pos[ok]
+        w_cur = a[3] * (a[2] < 5.991 / cam.fx ** 2)
+        lm = jp.fused_localmap_step(
+            feats["desc"], feats["valid"], feats["xy"], jnp.asarray(pk[:7]),
+            jnp.asarray(p3d_cur), jnp.asarray(w_cur, jnp.float32), lpos,
+            ldesc, lvalid, radius=8.0, chi2_th=5.991, **geo)
+        out["track"] = {
+            "feats": {k: np.asarray(v) for k, v in feats.items()},
+            "last_desc": np.asarray(last.desc),
+            "last_valid": np.asarray(last.valid), "aux": aux,
+            "lpos": np.asarray(lpos), "ldesc": np.asarray(ldesc),
+            "lvalid": np.asarray(lvalid), "geo": geo,
+            "packed": pk,
+            "p3d_cur": p3d_cur, "w_cur": w_cur.astype(np.float32),
+            "lm": [np.asarray(x) for x in lm]}
+        # frame 3's triangulation sweep: the map it starts from, and what
+        # it creates
+        dispatch, commit = mapper._new_points_dispatch, \
+            mapper._new_points_commit
+
+        def spy_dispatch(frame, fd=None):
+            out["new_points"] = {
+                "map": convert.worldmap_to_numpy(mapper.map),
+                "frame": frame.id, "kf_count": mapper._kf_count}
+            return dispatch(frame, fd)
+
+        def spy_commit(frame, neighbors, fetched):
+            before = frame.kp2mp.copy()
+            created = commit(frame, neighbors, fetched)
+            kp = np.nonzero((before < 0) & (frame.kp2mp >= 0))[0]
+            out["new_points"]["created"] = created
+            out["new_points"]["kp"] = {
+                int(k): np.array(mapper.map.point(int(
+                    frame.kp2mp[k])).position) for k in kp}
+            return created
+
+        mapper._new_points_dispatch = spy_dispatch
+        mapper._new_points_commit = spy_commit
+        slam.track(frames[SLAM_STAGE_FRAME], float(SLAM_STAGE_FRAME))
+    finally:
+        jm.Mapper.solve_local_window = staticmethod(solve)
+    out["after"] = convert.worldmap_to_numpy(slam)
+    with tempfile.TemporaryDirectory() as d:
+        slam.map.save(f"{d}/map.maphash")
+        with open(f"{d}/map.maphash", "rb") as f:
+            out["maphash"] = f.read()
+        slam.map.save(f"{d}/map.npz")
+
+        def clone():
+            m = WorldMap()
+            assert m.load(f"{d}/map.npz")
+            return m
+        m = clone()
+        kfs = m.keyframes()
+        T_corr = np.array(kfs[-1].pose_c2w, np.float32)
+        T_corr[:3] += np.array([0.05, -0.03, 0.02], np.float32)
+        close_cfg = _jax_cfg()
+        close_cfg.set("SLAM.LoopGraphDenseMax", "0")   # the CG solver
+        LoopCloserSE3Graph(m, close_cfg)._close(kfs[-1], kfs[0].id, T_corr)
+        out["close"] = {"T_corr": T_corr, "poses": {
+            f.id: np.array(f.pose_c2w) for f in m.keyframes()},
+            "points": {p.id: np.array(p.position) for p in m.points()}}
+        m = clone()
+        for f in m.keyframes():
+            f.gps_enu = poses[f.id][:3].astype(np.float32)
+        mp = jm.Mapper(m, cfg)
+        ok = mp.fit_gps_all(min_frames=3)
+        out["gps"] = {"ok": ok, "rms": mp.last_gps_fit_rms, "poses": {
+            f.id: np.array(f.pose_c2w) for f in m.keyframes()}}
+    return out
+
+
 def _main(argv):
     """PYTHONPATH=. python tests/torch_port_reference.py solver-chain
     FILE.npz (from the repository root): the JAX package's solver chain,
     on the CPU, on the features and poses that
     scripts/torch_solver_chain.py saved, with its errors against the true
     poses (the port's runs on the same features are in that script's
-    output)."""
+    output).
+
+    PYTHONPATH=. python tests/torch_port_reference.py slam-survey: the JAX
+    package's SLAM over tests/test_slam.py's survey (the frames of
+    `slam_survey_frames`), its frames tracked, keyframes and ATE against
+    the truth (the port's, on the CPU at several thread counts:
+    scripts/torch_slam_spread.py)."""
     import jax
     jax.config.update("jax_platforms", "cpu")
     import chip_smoke
+    if argv == ["slam-survey"]:
+        return _jax_slam_survey()
     if len(argv) != 2 or argv[0] != "solver-chain":
         raise SystemExit(_main.__doc__)
     z = np.load(argv[1])
@@ -283,6 +468,21 @@ def _main(argv):
     s = chip_smoke.chain_summary(r, poses)
     print("JAX package's chain (CPU) on the port's features: "
           + chip_smoke.chain_line(s))
+
+
+def _jax_slam_survey():
+    import chip_smoke
+    from pislamfusion_tpu.core.camera import Camera
+    from pislamfusion_tpu.models.slam import create_slam
+    frames, gt = slam_survey_frames()
+    slam = create_slam(_jax_cfg(), Camera(*SLAM_CAM))
+    for i, img in enumerate(frames):
+        slam.track(img, float(i))
+    ate, span, _ = chip_smoke.slam_ate(slam, gt)
+    print(f"JAX package's SLAM (CPU) over the survey: tracked "
+          f"{slam.frames_tracked}/{slam.frames_total}, keyframes "
+          f"{len(slam.map.keyframes())}, ATE {ate / span * 100:.3f} % of "
+          f"the span")
 
 
 if __name__ == "__main__":
