@@ -70,6 +70,20 @@ It builds the port's CUDA kernels from `pislamfusion_tpu_torch/csrc/`
    K1, K4 and K2 (ORB) and K5 and K6 (SIFT); it gates on 85 % of frames
    tracked, ATE under 2 % of the span, 6 keyframes (ORB), a local BA and
    those launches;
+2e. drives the fused system (`python -m pislamfusion_tpu_torch`) through
+   `app.main` on a two-row 1080p lawnmower survey written as a
+   `.npudronemap` dataset (fx 1200, 120 m up, 4 m a frame, rows 40 m
+   apart, a GPS fix a frame with 0.4 m of noise): `Act=SLAM` twice (SLAM
+   in the caller's thread with GPS fitting and loop closing, the
+   FusionSystem consumer in its own thread into Map2D Type 3 with K3 and
+   K8, and the exporters), each with every launch count set to 0 just
+   before and read just after, `Act=TestMap2D` over the first run's
+   exported Map2DFusion folder, then `Act=Survey` (FastVO); it prints ms a
+   frame, the timer scopes, peak device memory, the queue's drops and the
+   launches, and gates on tests/test_cli.py's bars (tracked, GPS fit, geo
+   ATE, frames fed and refreshed, mosaic PSNR against the texture, every
+   artifact, the consumer ended without error) and on K1, K4, K2, K3 and
+   K8 having launched;
 3. checks the card's runs against the port's plain CPU runs on a small
    strip (600x640): FastVO ORB (both pyramids) and SIFT (3 frames, 256
    features, 3 bands), Map2D Types 1-4, Type 4 with and without
@@ -77,8 +91,10 @@ It builds the port's CUDA kernels from `pislamfusion_tpu_torch/csrc/`
    card's features and one set of samples for both), then SLAM on
    tests/test_slam.py's 320x240 survey (36 frames, its config; the same
    RANSAC draws from CPU generators; the whole runs and, from the card
-   run's state at six frames, one step on each device), and prints the
-   kernel table and the result line.
+   run's state at six frames, one step on each device), then the
+   FusionSystem on tests/test_refresh.py's three cases and the geo tiles
+   of its rebased canvas, and prints the kernel table and the result
+   line.
 
 Every failure raises and ends the script with a nonzero exit code. With no
 CUDA device it exits nonzero before printing any result.
@@ -111,6 +127,19 @@ STEP_M = 4.0         # bench.py: straight strip, 4 m per frame
 # bench.py's synthetic survey, rendered with numpy tables and torch products
 # ---------------------------------------------------------------------------
 
+def strip_texture(ts: int, seed: int = 0):
+    """bench.py's random texture (bench.py:89-176): blotchy rectangles over
+    noise, [ts, ts, 3] uint8 (numpy)."""
+    rng = np.random.default_rng(seed)
+    tex = np.full((ts, ts, 3), 128.0, np.float32)
+    tex += rng.normal(0, 12, tex.shape).astype(np.float32)
+    for _ in range(3000 * (ts * ts // (2048 * 2048) + 1)):
+        y, x = rng.integers(10, ts - 48, 2)
+        h, w = rng.integers(4, 24, 2)
+        tex[y:y + h, x:x + w] = rng.uniform(10, 245, 3)
+    return np.clip(tex, 0, 255).astype(np.uint8)
+
+
 def render_strip(K: int, H: int, W: int, fx: float, gs: float, ts: int,
                  device, seed: int = 0):
     """K uint8 RGB frames [K, H, W, 3] (a tensor on `device`) of a nadir
@@ -120,14 +149,7 @@ def render_strip(K: int, H: int, W: int, fx: float, gs: float, ts: int,
     coordinates). Each frame is bench.py's separable bilinear resampling of
     the texture, computed here per frame."""
     import torch
-    rng = np.random.default_rng(seed)
-    tex = np.full((ts, ts, 3), 128.0, np.float32)
-    tex += rng.normal(0, 12, tex.shape).astype(np.float32)
-    for _ in range(3000 * (ts * ts // (2048 * 2048) + 1)):
-        y, x = rng.integers(10, ts - 48, 2)
-        h, w = rng.integers(4, 24, 2)
-        tex[y:y + h, x:x + w] = rng.uniform(10, 245, 3)
-    tex = np.clip(tex, 0, 255).astype(np.uint8)
+    tex = strip_texture(ts, seed)
     offx, offy = 50.0, 30.0
     cx, cy = W / 2.0, H / 2.0
     a = ALT / (fx * gs)                       # texels per image pixel
@@ -1323,6 +1345,10 @@ def main() -> int:
     run_slam_phase("Sift", frames_s[:18], poses_s[:18], fx, dev, wrappers,
                    ("bandedstack", "bilineargrid"))
     del frames_s
+    # ---- phase 2e: the fused system through app.main: Act=SLAM (SLAM
+    # with the fusion consumer thread and the exporters) twice, then
+    # Act=Survey, on a two-row 1080p survey with GPS
+    run_fused_phase(dev, wrappers, card)
     for row in rows:
         # each kernel's count from the path it was ported for
         path = (orb_launches if row["name"] in (
@@ -1339,6 +1365,7 @@ def main() -> int:
     map2d_card_vs_cpu(dev)
     solver_card_vs_cpu(dev)
     slam_card_vs_cpu(dev)
+    fusion_card_vs_cpu(dev)
 
     print(card)
     print(json.dumps({"kernels": rows}))
@@ -2015,6 +2042,307 @@ def run_slam_phase(label, frames, poses, fx, dev, wrappers, path_kernels,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 2e: the fused system (`python -m pislamfusion_tpu_torch`) at full
+# width, through app.main
+# ---------------------------------------------------------------------------
+
+FUSED_ORIGIN = (116.35, 39.96, 40.0)   # tests/test_cli.py's GPS origin
+FUSED_ROW, FUSED_TURN = 20, 3          # frames a row, frames of the turn
+FUSED_ROW_GAP = 40.0                   # m between the rows: 63 % side overlap
+FUSED_GS, FUSED_TEX = 0.12, 3072       # m a texel, texels square
+FUSED_GPS_SIGMA = 0.4                  # m, one fix a frame
+# the mapper publishes its plane once it holds this many live points:
+# with ORB-1000 at 1080p the third or fourth keyframe (phase 2d never
+# reached the default 2000)
+FUSED_PLANE_MIN_POINTS = 500
+# tests/test_cli.py's bars
+FUSED_MIN_TRACKED, FUSED_MAX_ATE, FUSED_MIN_FED = 0.85, 2.0, 0.8
+FUSED_MIN_PSNR, FUSED_MIN_COVER = 12.0, 0.15
+
+
+def fused_poses():
+    """Two lawnmower rows at ALT (4 m a frame, FUSED_ROW_GAP apart), the
+    second flown back, joined by FUSED_TURN frames of the turn: nadir c2w
+    poses [K, 7] in ground coordinates."""
+    xs = 100.0 + STEP_M * np.arange(FUSED_ROW)
+    y0, y1 = 100.0, 100.0 + FUSED_ROW_GAP
+    turn = np.linspace(y0, y1, FUSED_TURN + 2)[1:-1]
+    pts = ([(x, y0) for x in xs] + [(xs[-1], y) for y in turn]
+           + [(x, y1) for x in xs[::-1]])
+    return np.array([[x, y, ALT, 1.0, 0.0, 0.0, 0.0] for x, y in pts])
+
+
+def write_fused_dataset(root, device, seed=5):
+    """tests/test_cli.py's unified .npudronemap layout at 1080p: config.cfg
+    (the camera), frames.txt, gps.txt (a fix a frame, FUSED_GPS_SIGMA of
+    noise, just before its frame) and images/*.png (the port's encoders:
+    the native libpng writer, else the zlib one), rendered on `device`
+    from bench.py's texture. Returns (dataset file, true poses, texture
+    [n, n, 3] uint8)."""
+    import torch
+    from pislamfusion_tpu_torch.core.camera import Camera
+    from pislamfusion_tpu_torch.core.gps import LocalFrame
+    from pislamfusion_tpu_torch.io import native_io
+    from pislamfusion_tpu_torch.models.map2d import _write_png
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    H, W, fx = 1080, 1920, 1200.0
+    tex = strip_texture(FUSED_TEX, seed)
+    ground = torch.from_numpy(tex).to(device).to(torch.float32)
+    cam = Camera(W, H, fx, fx, W / 2.0, H / 2.0)
+    poses = fused_poses()
+    rng = np.random.default_rng(seed)
+    local = LocalFrame(*FUSED_ORIGIN)
+    with open(os.path.join(root, "config.cfg"), "w") as f:
+        f.write(f"Camera.Paraments={W} {H} {fx:g} {fx:g} {W / 2.0:g} "
+                f"{H / 2.0:g}\n")
+    with open(os.path.join(root, "frames.txt"), "w") as ff, \
+            open(os.path.join(root, "gps.txt"), "w") as gf:
+        for i, p in enumerate(poses):
+            img = survey_view(ground, cam, p, FUSED_GS).round().clamp(
+                0, 255).to(torch.uint8).cpu().numpy()
+            name = f"images/{i:04d}.png"
+            if not native_io.save_png(os.path.join(root, name), img,
+                                      wait=False):
+                _write_png(os.path.join(root, name), img)
+            ff.write(f"{float(i):.6f} {name}\n")
+            lla = local.local_to_lla(p[:3] + rng.normal(
+                0, FUSED_GPS_SIGMA, 3))
+            gf.write(f"{float(i) - 0.01:.6f} "
+                     + " ".join(f"{v:.9f}" for v in lla) + "\n")
+    if native_io.flush_writes():
+        raise RuntimeError("phase 2e: the native PNG writer failed")
+    ds_file = os.path.join(root, "survey.npudronemap")
+    open(ds_file, "w").close()
+    return ds_file, poses, tex
+
+
+def geo_ate(est, gt):
+    """RMS of est - gt after removing the common offset (the GPS anchor),
+    as tests/test_cli.py measures geo-registration."""
+    err = est - gt
+    err = err - err.mean(0)
+    return float(np.sqrt(np.mean(np.sum(err ** 2, -1))))
+
+
+FUSED_SCOPES = ("App::track", "App::prefetchWait", "Fusion::feed",
+                "Fusion::refresh", "Fusion::rebase_feed")
+FUSED_KERNELS = ("flatpyr", "fastselect", "patchgather", "shearwarp",
+                 "bandedsandwich")
+
+
+def run_fused_slam(ds, out, wrappers):
+    """One `app.main(["Act=SLAM", ...])` call on the card with every launch
+    count of `wrappers` set to 0 just before and read just after, the
+    run's SLAM and FusionSystem caught from `app.run_slam`. Returns (slam,
+    fusion, wall s, launches, timer stats, {device: (peak bytes the run
+    allocated above what was allocated before it, bytes allocated
+    before)} from `memory_metric.device_usage`)."""
+    import torch
+    from pislamfusion_tpu_torch import app
+    from pislamfusion_tpu_torch.core import memory_metric
+    from pislamfusion_tpu_torch.core.svar import Svar
+    from pislamfusion_tpu_torch.core.timer import timer
+    caught = []
+    run_slam = app.run_slam
+
+    def spy(*a, **k):
+        caught.append(run_slam(*a, **k))
+        return caught[-1]
+    argv = ["Act=SLAM", ds, f"Out.Dir={out}", "Device=cuda",
+            "FeatureDetector=ORB", "SLAM.nFeature=1000", "SLAM.LoopClose=1",
+            f"Plane.MinPoints={FUSED_PLANE_MIN_POINTS}", "Map2D.Type=3",
+            "Map2D.Scale=0.5", "Map2D.BandNumber=5", "Map2D.WarpMode=shear",
+            f"Map2DFusionFolder={out}/m2df", f"MapFusionFile={out}/map.mf",
+            f"GeoTiles.Dir={out}/tiles", "Timer.Report=0", "StackTrace=0"]
+    timer.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = memory_metric.device_usage()
+    for fn in wrappers.values():
+        fn.launches = 0
+    app.run_slam = spy
+    t0 = time.perf_counter()
+    try:
+        rc = app.main(argv, cfg=Svar())
+    finally:
+        app.run_slam = run_slam
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    if rc != 0 or len(caught) != 1:
+        raise AssertionError(f"phase 2e: Act=SLAM returned {rc}")
+    after = memory_metric.device_usage()
+    peak = {d: (v["max_allocated"] - before[d]["allocated"],
+                before[d]["allocated"]) for d, v in after.items()}
+    return (*caught[0], wall, launches, timer.stats(), peak)
+
+
+def fused_playback(out):
+    """`Act=TestMap2D` on the card over the Map2DFusion folder an Act=SLAM
+    run exported to `out`/m2df: its keyframes' JPEGs at their poses. The
+    JPEGs decode only through the native decoder on a machine without
+    PIL, so without it the playback is skipped, and the line says so."""
+    from pislamfusion_tpu_torch import app
+    from pislamfusion_tpu_torch.core.svar import Svar
+    from pislamfusion_tpu_torch.io import native_io
+    try:
+        import PIL  # noqa: F401
+        pil = True
+    except ImportError:
+        pil = False
+    if not (native_io.available() or pil):
+        print("fused (phase 2e) Act=TestMap2D: not run (no JPEG decoder: "
+              "neither the native one nor PIL)")
+        return
+    t0 = time.perf_counter()
+    rc = app.main(["Act=TestMap2D", f"Map2D.DataPath={out}/m2df",
+                   f"Map.File2Save={out}/playback.png", "Device=cuda",
+                   "Map2D.Scale=0.5", "StackTrace=0"], cfg=Svar())
+    n = sum(1 for _ in open(os.path.join(out, "m2df", "trajectory.txt")))
+    print(f"fused (phase 2e) Act=TestMap2D over the exported Map2DFusion "
+          f"folder ({n} keyframes, JPEG through "
+          f"{'the native decoder' if native_io.available() else 'PIL'}): "
+          f"rc {rc}, {time.perf_counter() - t0:.2f} s")
+    if rc != 0 or not os.path.isfile(os.path.join(out, "playback.png")):
+        raise AssertionError("phase 2e Act=TestMap2D failed")
+
+
+def run_fused_phase(dev, wrappers, card):
+    """Phase 2e: the fused system on the two-row 1080p dataset, twice
+    through `app.main(["Act=SLAM", ...])` (SLAM on the caller's thread,
+    the FusionSystem consumer in its own, Map2D Type 3 with K3 and K8),
+    then `Act=Survey` (FastVO). Prints ms a frame, the timer scopes, peak
+    device memory, the queue's drops and the launches; gates on
+    tests/test_cli.py's bars. Returns {kernel: launches} of the first
+    Act=SLAM run."""
+    import shutil
+    import tempfile
+    import torch
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "examples"))
+    from torch_pipeline_demo import mosaic_psnr_vs_truth
+    from pislamfusion_tpu_torch import app
+    from pislamfusion_tpu_torch.core.svar import Svar
+    from pislamfusion_tpu_torch.io import native_io
+    from pislamfusion_tpu_torch.ops import ransac
+    root = tempfile.mkdtemp(prefix="psf_fused_")
+    try:
+        t0 = time.perf_counter()
+        ds, poses, tex = write_fused_dataset(os.path.join(root, "ds"), dev)
+        K = len(poses)
+        print(f"fused (phase 2e) dataset: {K} frames 1920x1080 (two rows "
+              f"of {FUSED_ROW} at {STEP_M:g} m a frame, {FUSED_ROW_GAP:g} m "
+              f"apart, {FUSED_TURN} frames of turn, {ALT:g} m up, "
+              f"{FUSED_GS} m a texel), a GPS fix a frame with "
+              f"{FUSED_GPS_SIGMA} m of noise, written in "
+              f"{time.perf_counter() - t0:.1f} s; native image IO "
+              f"{native_io.available()}; Plane.MinPoints "
+              f"{FUSED_PLANE_MIN_POINTS}")
+        first = None
+        walls = []
+        for call in range(2):
+            slam = fusion = None          # free the last call's state
+            out = os.path.join(root, f"slam{call}")
+            slam, fusion, wall, launches, stats, mem = run_fused_slam(
+                ds, out, wrappers)
+            walls.append(wall * 1e3 / K)
+            first = first or launches
+            tracked = slam.frames_tracked / max(slam.frames_total, 1)
+            frames = [f for f in slam.map.frames()
+                      if f.n_tracked() > 0 or f.is_keyframe]
+            est = np.stack([f.pose_c2w[:3] for f in frames])
+            ids = np.asarray([int(round(f.timestamp)) for f in frames])
+            ate = geo_ate(est, poses[ids][:, :3])
+            S = ransac.sim3_horn(
+                torch.from_numpy(poses[ids][:, :3].astype(np.float32)),
+                torch.from_numpy(est.astype(np.float32)))
+            psnr, cover = mosaic_psnr_vs_truth(
+                fusion.map2d, tex.astype(np.float32), S.numpy(),
+                ground_scale=FUSED_GS) if fusion.map2d is not None \
+                else (0.0, 0.0)
+            dropped = fusion.dropped_before_prepare
+            total_drop = slam.trans_queue.dropped
+            tiles = [f for _, _, fs in os.walk(os.path.join(out, "tiles"))
+                     for f in fs if f.endswith(".png")]
+            missing = [f for f in ("result.png", "trajectory.txt",
+                                   "map.ply", "m2df/config.cfg", "map.mf")
+                       if not os.path.isfile(os.path.join(out, f))]
+            peak, held = mem.get("cuda:0", (0, 0))
+            print(f"fused (phase 2e) Act=SLAM call {call + 1}: "
+                  f"{wall * 1e3 / K:.1f} ms a frame (host clock, the whole "
+                  f"Act); tracked {slam.frames_tracked}/{slam.frames_total}"
+                  f", keyframes {len(slam.map.keyframes())}, map points "
+                  f"{slam.map.point_num()}, GPS fitted "
+                  f"{slam.mapper.gps_fitted}, geo ATE {ate:.3f} m; mosaic "
+                  f"fed {fusion.frames_fed}, refreshed "
+                  f"{fusion.frames_refreshed}, queue dropped {dropped} "
+                  f"before the plane ({total_drop} in all), PSNR "
+                  f"{psnr:.2f} dB over {cover:.3f} of the ground, "
+                  f"{len(tiles)} tiles; consumer alive {fusion.alive()}, "
+                  f"error {fusion.error is not None}; peak device memory "
+                  f"{peak / 2 ** 20:.1f} MiB above the {held / 2 ** 20:.1f} "
+                  f"MiB held before the call ({card})")
+            print(f"fused (phase 2e) call {call + 1} timer scopes, total ms "
+                  "(calls): " + ", ".join(
+                      f"{k} {stats.get(k, {}).get('total', 0.0) * 1e3:.1f} "
+                      f"({stats.get(k, {}).get('count', 0)})"
+                      for k in FUSED_SCOPES))
+            print(f"fused (phase 2e) call {call + 1} launches: " + ", ".join(
+                f"{k} {launches[k]}" for k in FUSED_KERNELS))
+            fed_min = FUSED_MIN_FED * slam.frames_tracked - dropped
+            if not (tracked >= FUSED_MIN_TRACKED and slam.mapper.gps_fitted
+                    and ate < FUSED_MAX_ATE and fusion.error is None
+                    and not fusion.alive()
+                    and fusion.frames_fed >= fed_min
+                    and fusion.frames_refreshed > 0
+                    and psnr >= FUSED_MIN_PSNR and cover > FUSED_MIN_COVER
+                    and not missing and tiles
+                    and min(launches[k] for k in FUSED_KERNELS) >= 1):
+                raise AssertionError(
+                    f"phase 2e Act=SLAM: gates failed (tracked {tracked:.3f}"
+                    f", GPS fitted {slam.mapper.gps_fitted}, ATE {ate:.3f}, "
+                    f"fed {fusion.frames_fed} < {fed_min:.1f}?, refreshed "
+                    f"{fusion.frames_refreshed}, PSNR {psnr:.2f} over "
+                    f"{cover:.3f}, missing {missing}, tiles {len(tiles)}, "
+                    f"alive {fusion.alive()}, launches {launches}, error "
+                    f"{fusion.error})")
+            if call == 0:
+                fused_playback(out)
+        print(f"fused (phase 2e) Act=SLAM ms a frame over {len(walls)} "
+              f"calls: {', '.join(f'{w:.1f}' for w in walls)} (spread "
+              f"{max(walls) / min(walls):.3f}x)")
+        # FastVO's batch survey on the same dataset, one card
+        out = os.path.join(root, "survey")
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = app.main(["Act=Survey", ds, f"Out.Dir={out}", "Device=cuda",
+                       f"Survey.Height={ALT:g}", "Survey.NFeature=1000",
+                       f"GeoTiles.Dir={out}/tiles", "Survey.Mesh=1",
+                       "StackTrace=0"], cfg=Svar())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        traj = np.loadtxt(os.path.join(out, "trajectory.txt"))
+        ate = geo_ate(traj[:, 1:3], poses[:, :2])
+        tiles = [f for _, _, fs in os.walk(os.path.join(out, "tiles"))
+                 for f in fs if f.endswith(".png")]
+        print(f"fused (phase 2e) Act=Survey: {wall * 1e3 / K:.1f} ms a frame"
+              f" (host clock, the whole Act, images read included), rc {rc},"
+              f" {traj.shape[0]} trajectory rows, ATE {ate:.3f} m, "
+              f"{len(tiles)} tiles; launches " + ", ".join(
+                  f"{k} {launches[k]}" for k in FUSED_KERNELS))
+        if not (rc == 0 and traj.shape[0] == K and ate < FUSED_MAX_ATE
+                and tiles and os.path.isfile(os.path.join(out,
+                                                          "result.png"))):
+            raise AssertionError("phase 2e Act=Survey: gates failed")
+        return first
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # phase 3's SLAM gates, card against CPU on the survey. The whole runs
 # are chaotic in their floats: two CPU runs of the port with 1 and 8
 # threads end 0.549 % of the span apart (RMS of Sim3-aligned centres),
@@ -2298,6 +2626,220 @@ def map2d_card_vs_cpu(dev):
         if not (psnr >= 40.0 and (c_c == c_g).all() and n_c == n_g == 6):
             raise AssertionError(f"Map2D {what}: the card's run disagrees "
                                  "with the CPU run")
+
+
+# ---------------------------------------------------------------------------
+# the FusionSystem's refresh cases (tests/test_refresh.py's three), fed
+# through a scripted queue so that a run is one deterministic sequence;
+# tests/test_torch_fusion.py runs them against the JAX package
+# ---------------------------------------------------------------------------
+
+FUSION_CAM = (320, 240, 260.0, 260.0, 160.0, 120.0)
+FUSION_PSNR, FUSION_GAUGE_TOL = 40.0, 1e-6
+
+
+class ScriptQueue:
+    """A trans/plane queue that hands out `items` in order; hooks[i]()
+    runs when item i is asked for (i == len(items): after the last)."""
+
+    def __init__(self, items=(), hooks=None):
+        self.items = list(items)
+        self.hooks = dict(hooks or {})
+        self.i = 0
+
+    def consumption(self, timeout=None):
+        import queue
+        hook = self.hooks.pop(self.i, None)
+        if hook is not None:
+            hook()
+        if self.i >= len(self.items):
+            raise queue.Empty
+        self.i += 1
+        return self.items[self.i - 1]
+
+    def try_consume(self):
+        import queue
+        try:
+            return self.consumption()
+        except queue.Empty:
+            return None
+
+    def qsize(self):
+        return len(self.items) - self.i
+
+
+class FakeMap:
+    """WorldMap stand-in: frame(fid) -> an object with .pose_c2w, or
+    None."""
+
+    def __init__(self, poses):
+        from types import SimpleNamespace
+        self.store = {k: SimpleNamespace(pose_c2w=np.array(v))
+                      for k, v in poses.items()}
+
+    def frame(self, fid):
+        return self.store.get(fid)
+
+
+def fusion_world(n=16):
+    """tests/test_refresh.py's world: its ground (seed 0) and n lawnmower
+    frames [H, W, 3] float32 (numpy), rendered on the CPU."""
+    import torch
+    from pislamfusion_tpu_torch.core.camera import Camera
+    ground = survey_ground(np.random.default_rng(0))
+    poses = survey_poses()[:n]
+    g = torch.from_numpy(ground)
+    frames = [survey_view(g, Camera(*FUSION_CAM), p).numpy()
+              for p in poses]
+    return ground, poses, frames
+
+
+def gauge_pose(shift, axis, ang):
+    """An SE3 (t, q): `shift`, then `ang` rad about axis 0, 1 or 2."""
+    q = np.zeros(4)
+    q[axis] = np.sin(ang / 2)
+    q[3] = np.cos(ang / 2)
+    return np.concatenate([np.asarray(shift, np.float64), q])
+
+
+def fusion_items(frames, poses, metas):
+    return [(f, p.copy(), m) for f, p, m in zip(frames, poses, metas)]
+
+
+def fusion_new_world(poses):
+    """The plane-move refit: yaw 0.2 rad and 15 m."""
+    from pislamfusion_tpu_torch.utils import host_se3 as hse3
+    g = gauge_pose([15.0, 5.0, 0.0], 2, 0.2)
+    return np.stack([hse3.se3_mul(g, p) for p in poses])
+
+
+def fusion_cases(frames, poses):
+    """{name: (items, {index: FakeMap})} for test_refresh.py's three
+    cases: a partial deformation (kf 100 moved 3 m, kf 101 not), a small
+    rotational gauge (no re-render), a plane move (12 frames in the old
+    world, the refit, 4 in the new one: a rebase)."""
+    from pislamfusion_tpu_torch.utils import host_se3 as hse3
+    p10, f10 = poses[:10], frames[:10]
+    drifted = p10.copy()
+    drifted[:, 0] += 3.0
+    partial = (fusion_items(f10, drifted, [
+        (1000 + i, 100, drifted[0].copy()) if i < 5
+        else (1000 + i, 101, drifted[5].copy()) for i in range(10)]),
+        {10: FakeMap({100: p10[0], 101: drifted[5]})})
+    g = gauge_pose([0.3, -0.2, 0.1], 0, 0.008)
+    rotational = (fusion_items(f10, p10, [(1000 + i, 1000 + i, p.copy())
+                                          for i, p in enumerate(p10)]),
+                  {10: FakeMap({1000 + i: hse3.se3_mul(g, p)
+                                for i, p in enumerate(p10)})})
+    new_world = fusion_new_world(poses)
+    fed = np.concatenate([poses[:12], new_world[12:]])
+    rebase = (fusion_items(frames, fed, [(1000 + i, 1000 + i, p.copy())
+                                         for i, p in enumerate(fed)]),
+              {12: FakeMap({1000 + i: m for i, m in enumerate(new_world)})})
+    return {"partial_deformation": partial, "rotational_gauge": rotational,
+            "plane_move_rebase": rebase}
+
+
+def fusion_cfg(svar_cls, scale=None, **extra):
+    """test_refresh.py's consumer config (3 bands, the plane given,
+    PrepareFrameNum 4) as `svar_cls`, Map2D.Scale `scale` if given."""
+    cfg = svar_cls()
+    cfg.set("Map2D.BandNumber", "3")
+    cfg.set("Plane", "0 0 0 0 0 0 1")
+    cfg.set("PrepareFrameNum", "4")
+    if scale is not None:
+        cfg.set("Map2D.Scale", str(scale))
+    for k, v in extra.items():
+        cfg.set(k, str(v))
+    return cfg
+
+
+def run_fusion(fusion_cls, cfg, camera, items, events, messenger,
+               patch=None, **kw):
+    """One consumer run of `fusion_cls` (the port's FusionSystem, or the
+    JAX package's), inline: `events` {index: map} are published on
+    `messenger` when item `index` is asked for; patch(fusion), if given,
+    runs just before the first. `kw` goes to the constructor."""
+    hooks = {}
+    for i, m in events.items():
+        def pub(m=m, first=i == min(events)):
+            if patch is not None and first:
+                patch(fus)
+            messenger.advertise("map_transformed").publish(m)
+        hooks[i] = pub
+    fus = fusion_cls(cfg, camera, trans_q=ScriptQueue(items, hooks),
+                     plane_q=ScriptQueue(), **kw)
+    fus._finishing.set()
+    fus.run()
+    if fus.error is not None:
+        raise AssertionError(fus.error)
+    return fus
+
+
+def mosaic_psnr(a, b, covered):
+    d = (np.asarray(a, np.float64) - b)[covered]
+    return 10 * np.log10(255.0 ** 2 / max(float((d ** 2).mean()), 1e-12))
+
+
+def fusion_card_vs_cpu(dev):
+    """The FusionSystem on test_refresh.py's three cases, the card against
+    the CPU on the same frames and events: mosaics >= FUSION_PSNR dB,
+    coverage equal, frames refreshed equal, feed gauges within
+    FUSION_GAUGE_TOL; then `export_geo_tiles` of the two rebased canvases:
+    the same tiles, each >= FUSION_PSNR dB."""
+    import shutil
+    import tempfile
+    from pislamfusion_tpu_torch.core.camera import Camera
+    from pislamfusion_tpu_torch.core.messenger import messenger
+    from pislamfusion_tpu_torch.core.svar import Svar
+    from pislamfusion_tpu_torch.io import exporters
+    from pislamfusion_tpu_torch.models.fusion import FusionSystem
+    from pislamfusion_tpu_torch.models.map2d import read_png
+    _, poses, frames = fusion_world()
+    last = None
+    for name, (items, events) in fusion_cases(frames, poses).items():
+        runs = [run_fusion(FusionSystem, fusion_cfg(Svar), Camera(
+            *FUSION_CAM), items, events, messenger, device=d)
+            for d in ("cpu", dev)]
+        (i_c, c_c), (i_g, c_g) = (r.map2d.blended() for r in runs)
+        g_c, g_g = (r._feed_gauge for r in runs)
+        dg = 0.0 if g_c is None and g_g is None else (
+            float(np.abs(g_c - g_g).max()) if g_c is not None
+            and g_g is not None else float("inf"))
+        psnr = mosaic_psnr(i_g, i_c, c_c | c_g)
+        n_c, n_g = (r.frames_refreshed for r in runs)
+        print(f"FusionSystem {name} (320x240, {len(items)} frames, 3 "
+              f"bands), card vs CPU: mosaic PSNR {psnr:.1f} dB, coverage "
+              f"equal {bool((c_c == c_g).all())}, refreshed {n_g} vs "
+              f"{n_c}, feed gauge max |diff| {dg:.2e}")
+        if not (psnr >= FUSION_PSNR and (c_c == c_g).all() and n_c == n_g
+                and dg <= FUSION_GAUGE_TOL):
+            raise AssertionError(f"FusionSystem {name}: the card's run "
+                                 "disagrees with the CPU run")
+        last = runs
+    root = tempfile.mkdtemp(prefix="psf_tiles_")
+    try:
+        sets = []
+        for tag, run in zip(("cpu", "card"), last):
+            d = os.path.join(root, tag)
+            n = exporters.export_geo_tiles(run.map2d, FUSED_ORIGIN, d,
+                                           zoom=20)
+            assert n >= 1, "no geo tile written"
+            sets.append({os.path.relpath(os.path.join(r, f), d): read_png(
+                os.path.join(r, f)) for r, _, fs in os.walk(d) for f in fs})
+        worst = min((mosaic_psnr(sets[1][k], sets[0][k],
+                                 np.ones(sets[0][k].shape[:2], bool))
+                     for k in sets[0] if k in sets[1]), default=0.0)
+        print(f"export_geo_tiles of the rebased canvases, zoom 20, card vs "
+              f"CPU: {len(sets[1])} vs {len(sets[0])} tiles, same set "
+              f"{sorted(sets[0]) == sorted(sets[1])}, worst tile PSNR "
+              f"{worst:.1f} dB")
+        if not (sets[0] and sorted(sets[0]) == sorted(sets[1])
+                and worst >= FUSION_PSNR):
+            raise AssertionError("export_geo_tiles: the card's tiles "
+                                 "disagree with the CPU's")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def card_vs_cpu(detector, dev, **kw):

@@ -10,10 +10,12 @@ raises.
 
 Ported so far: the FastVO track+fuse path (`models/fastvo.py`), with the
 ORB and the SIFT detector, the Map2D orthomosaic engines
-(`models/map2d.py`, Map2D.Type 1-4, `create_map2d`), and SLAM's
-geometric base: the camera models, the host modules (`core/`, `utils/`,
-`io/`), and the solvers (`ops/{lie,matching,ransac,init2view,multih,
-ba}`, `models/initializers`).
+(`models/map2d.py`, Map2D.Type 1-4, `create_map2d`), SLAM's geometric
+base (the camera models, the host modules of `core/`, `utils/`, `io/`,
+and the solvers), SLAM itself in its offline configuration
+(`models/slam.py`) and the fused system: the fusion consumer
+(`models/fusion.py`), the exporters, tiles and viz, and the binary
+`python -m pislamfusion_tpu_torch` (`app.py`).
 """
 from .core.camera import Camera
 from .core.device import resolve_device

@@ -13,7 +13,9 @@ sources in this checkout are built. A failed build raises with the
 compiler's output; nothing falls back.
 
 `build_all()` starts one `nvcc` per source, all at once, and waits for
-them: the way to build every kernel before a timed run.
+them: the way to build every kernel before a timed run. `load` holds a
+lock over its check, build and load, so that threads that first use one
+kernel together (SLAM's thread and the fusion consumer) build it once.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -32,6 +35,7 @@ KERNELS = ("flatpyr", "patchgather", "shearwarp", "fastselect",
            "bandedstack", "bilineargrid", "packedpyr", "bandedsandwich")
 
 _LIBS: dict = {}
+_LOAD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -97,13 +101,14 @@ def build_all(names=KERNELS) -> dict:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built first if needed."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        proc, tmp, out = _start(name)
-        _finish(name, proc, tmp, out)
-        lib = ctypes.CDLL(out)
-        _LIBS[name] = lib
-    return lib
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            proc, tmp, out = _start(name)
+            _finish(name, proc, tmp, out)
+            lib = ctypes.CDLL(out)
+            _LIBS[name] = lib
+        return lib
 
 
 def check(err: int, what: str) -> None:

@@ -6,6 +6,13 @@ Equivalents of:
   * src/DataTrans.h — the bounded drop-oldest producer/consumer queues that
     connect the SLAM half to the mosaic half (`Trans`, `Trans_Plane`).
   * Messenger.h:70-166 ThreadPool — the Mapper's 1-worker pool.
+
+A copy of pislamfusion_tpu/core/messenger.py, except that `Messenger`
+counts each topic's publishes (`published`): SLAM stamps every frame it
+queues for the mosaic with the count of map-transform publishes so far,
+and the fusion consumer gauges the frame by the map epoch it was tracked
+in (models/fusion.py); and a `DataTrans` counts the items it dropped
+(`dropped`).
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ class Publisher:
 class Messenger:
     def __init__(self):
         self._subs: Dict[str, List[Callable[[Any], None]]] = {}
+        self._published: Dict[str, int] = {}
         self._lock = threading.Lock()
 
     def advertise(self, topic: str) -> Publisher:
@@ -38,9 +46,16 @@ class Messenger:
 
     def _dispatch(self, topic: str, msg: Any):
         with self._lock:
+            self._published[topic] = self._published.get(topic, 0) + 1
             cbs = list(self._subs.get(topic, ()))
         for cb in cbs:
             cb(msg)
+
+    def published(self, *topics: str) -> int:
+        """How many messages the topics have had published, summed (a
+        subscriber called back for the n-th reads n here)."""
+        with self._lock:
+            return sum(self._published.get(t, 0) for t in topics)
 
 
 class DataTrans:
@@ -50,6 +65,7 @@ class DataTrans:
     def __init__(self, capacity: int = 30):
         self._q: queue.Queue = queue.Queue(maxsize=capacity)
         self._lock = threading.Lock()
+        self.dropped = 0
 
     def product(self, item: Any):
         with self._lock:
@@ -60,6 +76,7 @@ class DataTrans:
                 except queue.Full:
                     try:
                         self._q.get_nowait()   # drop oldest
+                        self.dropped += 1
                     except queue.Empty:
                         pass
 

@@ -4,7 +4,9 @@ behind the reference's SLAM plugin surface.
 Port of pislamfusion_tpu/models/slam.py (GSLAM-DIYSLAM/src/DIYSLAM.cpp):
 lazy module creation from config names on the first frame (:239-260),
 per-frame feature extraction (:279) and frame wrapping, the tracking call,
-and the (image, pose) push into the mosaic queue done by the tracker.
+and the (image, pose, meta) push into the mosaic queue; the meta also
+carries the map epoch (the count of map-transform publishes) that the
+fusion consumer gauges the frame by (models/fusion.py).
 
 Config keys match the reference (Default.cfg): Map?=Hash, Tracker?=opt,
 Mapper?=demo, FeatureDetector?=Sift|ORB, SLAM.nFeature, SLAM.MaxOverlap,
@@ -360,16 +362,21 @@ class SLAM:
                 else (frame.mosaic_image if frame.mosaic_image is not None
                       else frame.image)
             img = self._undistort_for_mosaic(img)
-            # attach (frame_id, ref_kf_id, kf_pose_at_feed) so the fusion
-            # consumer can re-render this frame's tiles when the map's
-            # poses improve (loop closure / GPS refit -> Map2D.refresh)
+            # attach (frame_id, ref_kf_id, kf_pose_at_feed, epoch) so the
+            # fusion consumer can re-render this frame's tiles when the
+            # map's poses improve (loop closure / GPS refit ->
+            # Map2D.refresh), and gauge it by the map epoch it was tracked
+            # in: the count of map-transform publishes so far
             meta = None
             rk = self.tracker.ref_kf_id
             if rk >= 0 and self.map is not None:
                 kf = self.map.frame(rk)
                 if kf is not None:
+                    from ..core.messenger import messenger as _msg
+                    from .fusion import TRANSFORM_TOPICS
                     meta = (frame.id, rk,
-                            np.asarray(kf.pose_c2w, np.float64).copy())
+                            np.asarray(kf.pose_c2w, np.float64).copy(),
+                            _msg.published(*TRANSFORM_TOPICS))
             self.trans_queue.product((img, frame.pose_c2w.copy(), meta))
             if frame.is_keyframe and self.cfg.get_bool("SLAM.LoopClose",
                                                        True):

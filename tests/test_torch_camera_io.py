@@ -10,7 +10,8 @@ package's, on the CPU.
   its degree-8 inverse polynomial in f32, 2e-2 px) and `ops.image.remap`
   within 2e-3 gray.
 - Host copies (utils/padding, utils/host_se3, core/glog, core/messenger,
-  core/resource, core/gps, io/native_io, io/dataset): each copy's syntax
+  core/resource, core/gps, io/native_io, io/dataset, and with the fused
+  system io/tiles, viz and core/memory_metric): each copy's syntax
   tree, without imports and docstrings, equals its original's, except the
   definitions listed (and why) in HOST_COPY_CHANGES; each module's cases
   of tests/test_camera_gps.py, tests/test_datasets.py and
@@ -190,6 +191,14 @@ HOST_COPY_CHANGES = {
     # the port's own copy of imageio.cpp, built into _build/ under a
     # per-process name renamed into place
     "io/native_io.py": {"_PKG_DIR", "_NATIVE_DIR", "_SRC", "_SO", "_build"},
+    # each topic's publishes are counted: SLAM stamps the frames it queues
+    # for the mosaic with the map epoch (models/fusion.py); a queue counts
+    # the items it drops
+    "core/messenger.py": {"Messenger.__init__", "Messenger._dispatch",
+                          "Messenger.published", "DataTrans.__init__",
+                          "DataTrans.product"},
+    # device memory from the CUDA caching allocator's counters
+    "core/memory_metric.py": {"device_usage"},
     # the card's machine has no PIL: PNGs through read_png, others through
     # the native decoder, then PIL
     "io/dataset.py": {"imread"},
@@ -204,7 +213,8 @@ HOST_COPIES = ["utils/padding.py", "utils/host_se3.py", "core/glog.py",
                "io/native_io.py", "io/dataset.py", "io/maphash.py",
                "models/worldmap.py", "models/frame.py",
                "resources/__init__.py", "resources/orb_vocab.py",
-               "resources/sift_vocab.py"]
+               "resources/sift_vocab.py", "io/tiles.py", "viz.py",
+               "core/memory_metric.py"]
 
 
 def _definitions(pkg, rel):

@@ -291,9 +291,10 @@ def test_process_from_a_converted_state_matches_a_fresh_run():
             np.testing.assert_array_equal(a, b)
 
 
-# the modules of the geometric base (camera models, host copies, solvers)
-# and of SLAM (state, vocabulary, map file, tracker, mapper, loop closing),
-# which the walk below must reach too
+# the modules of the geometric base (camera models, host copies, solvers),
+# of SLAM (state, vocabulary, map file, tracker, mapper, loop closing) and
+# of the fused system (fusion, exporters, tiles, viz, the app and its
+# `python -m` entry), which the walk below must reach too
 GEOMETRY_MODULES = (
     "utils.padding", "utils.host_se3", "core.glog", "core.messenger",
     "core.resource", "core.gps", "core.camera", "io.native_io", "io.dataset",
@@ -302,7 +303,8 @@ GEOMETRY_MODULES = (
     "models.worldmap", "models.matchers", "models.pipeline",
     "models.tracker", "models.mapper", "models.loopclose", "models.slam",
     "ops.vocabulary", "io.maphash", "resources.orb_vocab",
-    "resources.sift_vocab")
+    "resources.sift_vocab", "core.memory_metric", "io.tiles",
+    "io.exporters", "models.fusion", "viz", "app", "__main__")
 
 
 def test_port_imports_neither_jax_nor_the_reference():
