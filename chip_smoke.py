@@ -70,6 +70,23 @@ It builds the port's CUDA kernels from `pislamfusion_tpu_torch/csrc/`
    K1, K4 and K2 (ORB) and K5 and K6 (SIFT); it gates on 85 % of frames
    tracked, ATE under 2 % of the span, 6 keyframes (ORB), a local BA and
    those launches;
+2f. drives SLAM online (`SLAM.isOnline` 1: the tracking thread and the
+   mapper's worker), bench.py's SLAM pass: frames 0-23 of the strip out
+   and back (47 frames, uint8 gray from the host), ORB-1000, no loop
+   closing, in the four (SLAM.TrackChain, SLAM.TrackScale)
+   configurations (1, 1), (8, 1), (1, 2), (8, 2) in two interleaved
+   rounds (each one's minimum kept), then SIFT-1000 chained over frames
+   0-17, the synchronising calls of one chain of 8 frames
+   (`torch.cuda.set_sync_debug_mode`), and, after phase 2e, one online
+   `app.main(["Act=SLAM", ...])` with TrackChain 8 over phase 2e's
+   dataset; each call with every launch count set to 0 just before and
+   read just after; it prints ms a frame (host clock), tracked,
+   keyframes, ATE, the chains dispatched and their mean length, the
+   launches and peak device memory, and gates on every call's tracking
+   thread and mapper ending within a bounded wait, frames_total equal to
+   the frames fed, no track error, a chain of 2 or more in each chained
+   configuration, the path's kernels launched, 50 % tracked and ATE under
+   2 % of the span (ORB), and phase 2e's liveness gates (the app call);
 2e. drives the fused system (`python -m pislamfusion_tpu_torch`) through
    `app.main` on a two-row 1080p lawnmower survey written as a
    `.npudronemap` dataset (fx 1200, 120 m up, 4 m a frame, rows 40 m
@@ -90,8 +107,11 @@ It builds the port's CUDA kernels from `pislamfusion_tpu_torch/csrc/`
    seams (6 frames, 3 bands), and the solver chain on frames 0-2 (the
    card's features and one set of samples for both), then SLAM on
    tests/test_slam.py's 320x240 survey (36 frames, its config; the same
-   RANSAC draws from CPU generators; the whole runs and, from the card
-   run's state at six frames, one step on each device), then the
+   RANSAC draws from CPU generators; the card run twice, bit-equal; the
+   whole runs at tests/test_slam.py's bars and within SLAM_CARD_KF
+   keyframes of each other; from the card run's state at six frames, one
+   step on each device, and at three, both chain functions over 4 frames
+   on each device), then the
    FusionSystem on tests/test_refresh.py's three cases and the geo tiles
    of its rebased canvas, and prints the kernel table and the result
    line.
@@ -1344,11 +1364,17 @@ def main() -> int:
                    SLAM_MIN_KEYFRAMES)
     run_slam_phase("Sift", frames_s[:18], poses_s[:18], fx, dev, wrappers,
                    ("bandedstack", "bilineargrid"))
+    # ---- phase 2f: online SLAM (bench.py's SLAM pass): ORB-1000 over 47
+    # frames out and back in the four (TrackChain, TrackScale)
+    # configurations, twice, then SIFT-1000 chained
+    run_online_phase(frames_s, poses_s, fx, dev, wrappers, card)
     del frames_s
     # ---- phase 2e: the fused system through app.main: Act=SLAM (SLAM
     # with the fusion consumer thread and the exporters) twice, then
-    # Act=Survey, on a two-row 1080p survey with GPS
-    run_fused_phase(dev, wrappers, card)
+    # Act=Survey, on a two-row 1080p survey with GPS; then phase 2f's
+    # online Act=SLAM call over the same dataset
+    run_fused_phase(dev, wrappers, card, then=lambda ds, p, root:
+                    run_online_app(ds, p, root, wrappers, card))
     for row in rows:
         # each kernel's count from the path it was ported for
         path = (orb_launches if row["name"] in (
@@ -2131,13 +2157,14 @@ FUSED_KERNELS = ("flatpyr", "fastselect", "patchgather", "shearwarp",
                  "bandedsandwich")
 
 
-def run_fused_slam(ds, out, wrappers):
+def run_fused_slam(ds, out, wrappers, extra=(), label="phase 2e"):
     """One `app.main(["Act=SLAM", ...])` call on the card with every launch
     count of `wrappers` set to 0 just before and read just after, the
     run's SLAM and FusionSystem caught from `app.run_slam`. Returns (slam,
     fusion, wall s, launches, timer stats, {device: (peak bytes the run
     allocated above what was allocated before it, bytes allocated
-    before)} from `memory_metric.device_usage`)."""
+    before)} from `memory_metric.device_usage`). `extra`: more key=value
+    arguments for app.main."""
     import torch
     from pislamfusion_tpu_torch import app
     from pislamfusion_tpu_torch.core import memory_metric
@@ -2154,7 +2181,8 @@ def run_fused_slam(ds, out, wrappers):
             f"Plane.MinPoints={FUSED_PLANE_MIN_POINTS}", "Map2D.Type=3",
             "Map2D.Scale=0.5", "Map2D.BandNumber=5", "Map2D.WarpMode=shear",
             f"Map2DFusionFolder={out}/m2df", f"MapFusionFile={out}/map.mf",
-            f"GeoTiles.Dir={out}/tiles", "Timer.Report=0", "StackTrace=0"]
+            f"GeoTiles.Dir={out}/tiles", "Timer.Report=0", "StackTrace=0",
+            *extra]
     timer.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2171,7 +2199,7 @@ def run_fused_slam(ds, out, wrappers):
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in wrappers.items()}
     if rc != 0 or len(caught) != 1:
-        raise AssertionError(f"phase 2e: Act=SLAM returned {rc}")
+        raise AssertionError(f"{label}: Act=SLAM returned {rc}")
     after = memory_metric.device_usage()
     peak = {d: (v["max_allocated"] - before[d]["allocated"],
                 before[d]["allocated"]) for d, v in after.items()}
@@ -2208,14 +2236,15 @@ def fused_playback(out):
         raise AssertionError("phase 2e Act=TestMap2D failed")
 
 
-def run_fused_phase(dev, wrappers, card):
+def run_fused_phase(dev, wrappers, card, then=None):
     """Phase 2e: the fused system on the two-row 1080p dataset, twice
     through `app.main(["Act=SLAM", ...])` (SLAM on the caller's thread,
     the FusionSystem consumer in its own, Map2D Type 3 with K3 and K8),
     then `Act=Survey` (FastVO). Prints ms a frame, the timer scopes, peak
     device memory, the queue's drops and the launches; gates on
-    tests/test_cli.py's bars. Returns {kernel: launches} of the first
-    Act=SLAM run."""
+    tests/test_cli.py's bars. Then `then(dataset path, true poses, work
+    directory)`, when given, before the dataset is removed. Returns
+    {kernel: launches} of the first Act=SLAM run."""
     import shutil
     import tempfile
     import torch
@@ -2338,9 +2367,272 @@ def run_fused_phase(dev, wrappers, card):
                 and tiles and os.path.isfile(os.path.join(out,
                                                           "result.png"))):
             raise AssertionError("phase 2e Act=Survey: gates failed")
+        if then is not None:
+            then(ds, poses, root)
         return first
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 2f: online SLAM at full width (bench.py's SLAM pass on the port)
+# ---------------------------------------------------------------------------
+
+# bench.py:306's (SLAM.TrackChain, SLAM.TrackScale) configurations
+ONLINE_CONFIGS = ((1, 1), (8, 1), (1, 2), (8, 2))
+# phase 2f's gates for each ORB call: the share of the frames fed that
+# tracked, ATE after Sim3 alignment as a share of the span. The share is
+# below phase 2d's offline 35/36 on purpose: online, the tracker runs
+# ahead of the mapper's worker (the JAX package's own online tests hold
+# 0.35 on a busy host)
+ONLINE_MIN_TRACKED, ONLINE_MAX_ATE_SHARE = 0.5, 0.02
+ONLINE_JOIN_S = 120.0    # SLAM.finish's bound on the thread and the mapper
+ORB_KERNELS = ("flatpyr", "fastselect", "patchgather")
+# at TrackScale 2 (960x540) ORB-1000's 8 levels do not all keep one
+# keypoint a cell, so the per-level chain selects instead of K4
+ORB_HALF_KERNELS = ("flatpyr", "patchgather")
+SIFT_KERNELS = ("bandedstack", "bilineargrid")
+
+
+def online_order(k: int):
+    """bench.py:276-277's out-and-back order over k frames: 0..k-1 then
+    k-2..0."""
+    return list(range(k)) + list(range(k - 2, -1, -1))
+
+
+def bench_gray(rgb):
+    """bench.py:272-274's host gray frames: RGB [..., H, W, 3] (numpy,
+    uint8 or float) -> float BT.601 luma, clipped, truncated to uint8."""
+    return np.clip(rgb.astype(np.float32) @ np.asarray(
+        [0.299, 0.587, 0.114], np.float32), 0, 255).astype(np.uint8)
+
+
+def online_cfg(detector: str, chain: int, scale: int):
+    """bench.py:279-291's config on the port: `detector`-1000, no loop
+    closing, SLAM.isOnline 1, SLAM.TrackChain and SLAM.TrackScale."""
+    cfg = slam_full_cfg(detector)
+    cfg.set("SLAM.LoopClose", "0")
+    cfg.set("SLAM.isOnline", "1")
+    cfg.set("SLAM.TrackChain", str(chain))
+    cfg.set("SLAM.TrackScale", str(scale))
+    return cfg
+
+
+def run_online_slam(gray, gt, fx, dev, wrappers, chain, scale,
+                    detector="ORB"):
+    """One online SLAM call: `create_slam` (SLAM.isOnline 1) fed the
+    frames `gray` [K, H, W] uint8 (numpy) from this thread through
+    `SLAM.track`, then `finish` within ONLINE_JOIN_S, with every launch
+    count of `wrappers` set to 0 just before and read just after; `gt`
+    [K, 7] the true pose of each frame fed. Returns a dict: ms a frame
+    (host clock, feed to finish), tracked, keyframes, ATE share, chains,
+    launches, peak device memory above what the call found, and the
+    liveness flags."""
+    import torch
+    from pislamfusion_tpu_torch.core.camera import Camera
+    from pislamfusion_tpu_torch.core.messenger import DataTrans
+    from pislamfusion_tpu_torch.models.slam import create_slam
+    K, H, W = gray.shape
+    slam = create_slam(online_cfg(detector, chain, scale),
+                       Camera(W, H, fx, fx, W / 2.0, H / 2.0), device=dev)
+    slam.trans_queue = DataTrans(30)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for j in range(K):
+        slam.track(gray[j], float(j))
+    ended = slam.finish(timeout=ONLINE_JOIN_S)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    ate, span, _ = slam_ate(slam, gt)
+    lengths = slam.tracker.chain_lengths
+    return {"ms": wall * 1e3 / K, "fed": K, "total": slam.frames_total,
+            "tracked": slam.frames_tracked,
+            "keyframes": len(slam.map.keyframes()), "ate": ate / span,
+            "chains": len(lengths), "longest": max(lengths, default=0),
+            "mean_chain": float(np.mean(lengths)) if lengths else 0.0,
+            "launches": launches, "ended": ended,
+            "alive": slam._worker.is_alive(),
+            "pending": slam.mapper._pool.pending(),
+            "errors": slam.track_errors + slam.mapper.worker_errors,
+            "peak": torch.cuda.max_memory_allocated() - held}
+
+
+def online_line(label, r, kernels, card):
+    return (f"online (phase 2f) {label}: {r['ms']:.1f} ms a frame (host "
+            f"clock, feed to finish); tracked {r['tracked']}/{r['total']} "
+            f"of {r['fed']} fed, keyframes {r['keyframes']}, ATE "
+            f"{r['ate'] * 100:.4f} % of the span (Sim3-aligned); chains "
+            f"{r['chains']}, mean length {r['mean_chain']:.2f}, longest "
+            f"{r['longest']}; track errors {r['errors']}, thread ended "
+            f"{not r['alive']}, mapper pending {r['pending']}; launches "
+            + ", ".join(f"{k} {r['launches'][k]}" for k in kernels)
+            + f"; peak device memory {r['peak'] / 2 ** 20:.1f} MiB above "
+            f"what the call found ({card})")
+
+
+def online_gates(label, r, kernels, chain, orb=True):
+    """Phase 2f's gates on one call (see ONLINE_MIN_TRACKED)."""
+    ok = (r["ended"] and not r["alive"] and r["pending"] == 0
+          and r["total"] == r["fed"] and r["errors"] == 0
+          and min(r["launches"][k] for k in kernels) >= 1
+          and (chain == 1 or r["longest"] >= 2)
+          and (not orb or (r["tracked"] >= ONLINE_MIN_TRACKED * r["fed"]
+                           and r["ate"] < ONLINE_MAX_ATE_SHARE)))
+    if not ok:
+        raise AssertionError(f"phase 2f {label}: gates failed ({r})")
+
+
+def count_syncs(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("warn") on this thread:
+    (its result, the synchronising calls it made, by their warnings)."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def chain_syncs(gray, fx, dev, k=8):
+    """The synchronising calls of one chain of `k` frames: an offline ORB
+    SLAM tracks frames 0-3 of `gray`, then (1)
+    `pipeline.fused_track_chain_images` on the next k frames with its one
+    copy back, and (2) the whole `Tracker.track_chain` of them (staging,
+    upload, the chain, the copy and the host bookkeeping, keyframes and
+    the mapper's work for them inline). Returns (1, 2)."""
+    import torch
+    from pislamfusion_tpu_torch.core.camera import Camera
+    from pislamfusion_tpu_torch.models import pipeline
+    from pislamfusion_tpu_torch.models.frame import Frame
+    from pislamfusion_tpu_torch.models.slam import create_slam
+    K, H, W = gray.shape
+    cam = Camera(W, H, fx, fx, W / 2.0, H / 2.0)
+    cfg = slam_full_cfg("ORB")
+    cfg.set("SLAM.LoopClose", "0")
+    slam = create_slam(cfg, cam, device=dev)
+    for j in range(4):
+        slam.track(gray[j], float(j))
+    ins, kw = slam_chain_inputs(slam)
+    imgs = torch.from_numpy(gray[4:4 + k]).to(dev)
+    torch.cuda.synchronize()
+    _, n_fn = count_syncs(lambda: pipeline.fused_track_chain_images(
+        imgs, *ins, params=slam.detector.params, **kw)[0].cpu())
+    frames = [Frame(id=slam.map.get_fid(), timestamp=float(j), camera=cam,
+                    image=gray[j]) for j in range(4, 4 + k)]
+    torch.cuda.synchronize()
+    n, n_all = count_syncs(lambda: slam.tracker.track_chain(frames))
+    if n != k:
+        raise AssertionError(f"phase 2f: the measured chain consumed {n} "
+                             f"of {k} frames")
+    return n_fn, n_all
+
+
+def run_online_phase(frames, poses, fx, dev, wrappers, card):
+    """Phase 2f: bench.py's SLAM pass on the port. The first 24 frames of
+    the strip in bench.py's out-and-back order (47 frames), uint8 gray
+    from the host, ORB-1000, no loop closing, SLAM.isOnline 1: the four
+    (TrackChain, TrackScale) configurations in two interleaved rounds,
+    each one's minimum ms a frame kept (bench.py:306-316); then
+    SIFT-1000 with TrackChain 8 over frames 0-17; and the synchronising
+    calls of one chain. Gates in `online_gates`."""
+    k = min(len(poses), 24)
+    order = online_order(k)
+    gray = bench_gray(frames[:k].cpu().numpy())[order]
+    gt = poses[:k][order]
+    K, H, W = gray.shape
+    print(f"online (phase 2f) inputs: frames 0-{k - 1} of the strip "
+          f"{W}x{H}, out and back ({K} frames), uint8 gray from the host; "
+          f"ORB-1000, SLAM.LoopClose 0, SLAM.isOnline 1; the gates: "
+          f"tracked >= {ONLINE_MIN_TRACKED:g} of the frames fed and ATE < "
+          f"{ONLINE_MAX_ATE_SHARE * 100:g} % of the span (ORB), frames_total"
+          f" = fed, no track error, the thread and the mapper ended within "
+          f"{ONLINE_JOIN_S:g} s, a chain of 2 or more, the path's kernels "
+          f"launched")
+    best = {}
+    for rnd in range(2):
+        for chain, scale in ONLINE_CONFIGS:
+            label = (f"ORB TrackChain {chain} TrackScale {scale} round "
+                     f"{rnd + 1}")
+            r = run_online_slam(gray, gt, fx, dev, wrappers, chain, scale)
+            print(online_line(label, r, ORB_KERNELS, card))
+            online_gates(label, r, ORB_KERNELS if scale == 1
+                         else ORB_HALF_KERNELS, chain)
+            if r["ms"] < best.get((chain, scale), (np.inf,))[0]:
+                best[(chain, scale)] = (r["ms"], r["tracked"])
+    print("online (phase 2f) ORB, the minimum of two rounds, ms a frame "
+          "(frames/s, tracked of 47): " + "; ".join(
+              f"TrackChain {c} TrackScale {s} {ms:.1f} ({1e3 / ms:.2f}, "
+              f"{t})" for (c, s), (ms, t) in best.items()))
+    sg = bench_gray(frames[:18].cpu().numpy())
+    r = run_online_slam(sg, poses[:18], fx, dev, wrappers, 8, 1, "Sift")
+    print(online_line("SIFT TrackChain 8, frames 0-17", r, SIFT_KERNELS,
+                      card))
+    online_gates("SIFT", r, SIFT_KERNELS, 8, orb=False)
+    n_fn, n_all = chain_syncs(gray, fx, dev)
+    print(f"online (phase 2f) synchronising calls of one chain of 8 "
+          f"frames (torch.cuda.set_sync_debug_mode): "
+          f"fused_track_chain_images and its copy back {n_fn}; the whole "
+          f"Tracker.track_chain (staging, upload, chain, copy, bookkeeping,"
+          f" keyframes and their mapping inline) {n_all}")
+
+
+def run_online_app(ds, poses, root, wrappers, card):
+    """Phase 2f's last call: `app.main(["Act=SLAM", ...])` over phase 2e's
+    dataset with SLAM.isOnline 1 and SLAM.TrackChain 8 (the tracking
+    thread, the mapper's worker and the fusion consumer on one card).
+    Gates on phase 2e's liveness: every artifact, the consumer ended
+    without error, frames fed; and on the online SLAM's: frames_total =
+    frames read, no track error, the thread ended, the mapper drained,
+    K1, K4, K2, K3 and K8 launched."""
+    out = os.path.join(root, "online")
+    slam, fusion, wall, launches, _, mem = run_fused_slam(
+        ds, out, wrappers, ("SLAM.isOnline=1", "SLAM.TrackChain=8"),
+        "phase 2f")
+    K = len(poses)
+    frames = [f for f in slam.map.frames()
+              if f.n_tracked() > 0 or f.is_keyframe]
+    est = np.stack([f.pose_c2w[:3] for f in frames])
+    ids = np.asarray([int(round(f.timestamp)) for f in frames])
+    ate = geo_ate(est, poses[ids][:, :3])
+    lengths = slam.tracker.chain_lengths
+    missing = [f for f in ("result.png", "trajectory.txt", "map.ply",
+                           "m2df/config.cfg", "map.mf")
+               if not os.path.isfile(os.path.join(out, f))]
+    peak, held = mem.get("cuda:0", (0, 0))
+    print(f"online (phase 2f) Act=SLAM, SLAM.isOnline 1, TrackChain 8, "
+          f"phase 2e's dataset: {wall * 1e3 / K:.1f} ms a frame (host "
+          f"clock, the whole Act); tracked {slam.frames_tracked}/"
+          f"{slam.frames_total} of {K}, keyframes "
+          f"{len(slam.map.keyframes())}, GPS fitted {slam.mapper.gps_fitted}"
+          f", geo ATE {ate:.3f} m; chains {len(lengths)}, mean length "
+          f"{np.mean(lengths) if lengths else 0:.2f}; mosaic fed "
+          f"{fusion.frames_fed}, refreshed {fusion.frames_refreshed}; "
+          f"consumer alive {fusion.alive()}, error {fusion.error is not None}"
+          f"; thread ended {not slam._worker.is_alive()}, mapper pending "
+          f"{slam.mapper._pool.pending()}, track errors "
+          f"{slam.track_errors + slam.mapper.worker_errors}; launches "
+          + ", ".join(f"{k} {launches[k]}" for k in FUSED_KERNELS)
+          + f"; peak device memory {peak / 2 ** 20:.1f} MiB above the "
+          f"{held / 2 ** 20:.1f} MiB held before the call ({card})")
+    if not (not missing and fusion.error is None and not fusion.alive()
+            and fusion.frames_fed > 0 and slam.frames_total == K
+            and slam.track_errors == 0 and slam.mapper.worker_errors == 0
+            and not slam._worker.is_alive()
+            and slam.mapper._pool.pending() == 0
+            and min(launches[k] for k in FUSED_KERNELS) >= 1):
+        raise AssertionError(f"phase 2f Act=SLAM online: gates failed "
+                             f"(missing {missing}, error {fusion.error}, fed "
+                             f"{fusion.frames_fed}, total "
+                             f"{slam.frames_total}, launches {launches})")
 
 
 # phase 3's SLAM gates, card against CPU on the survey. The whole runs
@@ -2350,8 +2642,15 @@ def run_fused_phase(dev, wrappers, card):
 # fusion and local BA) parts by up to 0.38 % between 1 and 8 CPU threads
 # when a point or a binding flips (scripts/torch_slam_spread.py); card
 # calls read 0.50-1.06 % from one CPU run (PERF.md section 6).
-# So the whole runs are held only to keyframe counts within
-# SLAM_CARD_KF, their agreement printed; the stages are held on the
+# So the whole runs are held to tests/test_slam.py's bars against the
+# truth (SLAM_MIN_TRACKED, SLAM_MAX_ATE_SHARE, more than 300 points) and
+# to keyframe counts within SLAM_CARD_KF of each other: the widest gap
+# between the keyframe counts of CPU runs on 1, 2, 4 and 8 threads
+# (scripts/torch_slam_spread.py: 23, 23, 23, 23 on one 8-core CPU), and
+# never below 1. Their agreement is printed. The card's own float path is
+# deterministic (ops/ba.py sums its scatters in a fixed order), so two
+# card runs of the survey must be equal: the same keyframes and the same
+# poses bit for bit. The stages are held on the
 # same inputs: at each of SLAM_STEP_FRAMES the
 # card run's fused tracking step (`fused_track_packed_feats`, from its
 # state, features and staged local map) on the card and on the CPU,
@@ -2364,8 +2663,19 @@ def run_fused_phase(dev, wrappers, card):
 # up to 5.1e-3 (scripts/torch_slam_spread.py), and card against CPU read
 # poses 3.1e-3-4.4e-3 and points 4.7e-3-1.14e-2 apart (two card runs,
 # PERF.md section 6), so its gates sit at 4x the largest of those, where
-# a wrong kernel or solver would still fail by orders
+# a wrong kernel or solver would still fail by orders. The chain
+# functions (`fused_track_chain` on the card's features,
+# `fused_track_chain_images` on the frames) are held, row by row, over
+# SLAM_CHAIN_K frames from the card run's state at each of
+# SLAM_CHAIN_FRAMES (inside the survey's three rows), to the step gates
+# but for the poses: a chain's rows feed each other, and 1e-7 relative
+# noise in its aux moves them by up to 6.6e-5 of the translation scale
+# on the CPU (scripts/torch_slam_spread.py, the frame-3 state just after
+# the two-view set-up); card against CPU read 5.84e-5 and 9.32e-5 (two
+# calls, PERF.md section 6), so SLAM_CHAIN_POSE is 4x the largest,
+# rounded up
 SLAM_CARD_KF, SLAM_STEP_POSE = 1, 1e-4
+SLAM_CHAIN_FRAMES, SLAM_CHAIN_K, SLAM_CHAIN_POSE = (3, 15, 27), 4, 4e-4
 SLAM_BA_POSE, SLAM_BA_POINT, SLAM_BA_WINDOWS = 2e-2, 5e-2, 6
 SLAM_STEP_FRAMES = (3, 9, 15, 21, 27, 33)
 
@@ -2436,14 +2746,97 @@ def slam_track_inputs(slam, image):
             torch.from_numpy(aux).to(dev), lpos, ldesc, lvalid), geo
 
 
+def slam_chain_inputs(slam):
+    """`pipeline.fused_track_chain*`'s inputs from a SLAM in the TRACKING
+    state, as `Tracker.track_chain` stages them: (last frame's descriptors
+    and valid mask, aux [4N + 14] = its map points, their mask, its pose
+    and the motion model, the staged local map (pos, desc, valid)) as
+    tensors on the SLAM's device, and the keywords (camera geometry,
+    window radii 20 and 8, chi2 5.991)."""
+    import torch
+    tr = slam.tracker
+    last = tr.last_frame
+    tr._stage_local_map()
+    lpos, ldesc, lvalid, _ = tr._local_stage
+    pos, has = tr._gather_frame_points(last)
+    aux = np.concatenate([pos.reshape(-1), has.astype(np.float32),
+                          last.pose_c2w, tr.motion]).astype(np.float32)
+    dev = slam.device
+    cam = last.camera
+    kw = dict(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, width=cam.width,
+              height=cam.height, radius=20.0, radius_local=8.0,
+              chi2_th=5.991)
+    return (torch.from_numpy(last.desc).to(dev),
+            torch.from_numpy(last.valid).to(dev),
+            torch.from_numpy(aux).to(dev), lpos, ldesc, lvalid), kw
+
+
+def rows_apart(a, b, n):
+    """The step gates' measures between packed rows a and b [..., 16 + 6n +
+    2P] (numpy): the largest pose difference as a share of the translation
+    scale, the largest inlier count difference, the share of last-frame
+    match masks that differ."""
+    a, b = np.atleast_2d(a), np.atleast_2d(b)
+    pose = max(float(np.abs(a[k][sl] - b[k][sl]).max()) / max(float(
+        np.linalg.norm(b[k][8:11])), 1.0) for k in range(len(a))
+        for sl in (slice(0, 7), slice(8, 15)))
+    inl = int(np.abs(a[:, [7, 15]] - b[:, [7, 15]]).max())
+    masks = float(np.mean(a[:, 16 + n:16 + 2 * n] != b[:, 16 + n:16 + 2 * n]))
+    return pose, inl, masks
+
+
+def slam_chain_card_vs_cpu(dev, states, frames):
+    """`fused_track_chain` and `fused_track_chain_images` on the card and
+    on the CPU from the card run's state at each of SLAM_CHAIN_FRAMES,
+    over the next SLAM_CHAIN_K frames (`bench_gray`'s uint8 frames; the
+    feature chain fed the card's features on both devices). Returns the
+    worst (pose, inliers, masks) of each and the rows' least inlier
+    count."""
+    import torch
+    from pislamfusion_tpu_torch import convert
+    from pislamfusion_tpu_torch.core.camera import Camera
+    from pislamfusion_tpu_torch.models import pipeline
+    from pislamfusion_tpu_torch.models.slam import create_slam
+    worst = {"feats": (0.0, 0, 0.0), "images": (0.0, 0, 0.0)}
+    least = np.inf
+
+    def cpu(x):
+        return x.cpu()
+    for i in SLAM_CHAIN_FRAMES:
+        s = create_slam(slam_survey_cfg(), Camera(320, 240, 260.0, 260.0,
+                                                  160.0, 120.0), device=dev)
+        convert.load_worldmap_state(s, states[i])
+        ins, kw = slam_chain_inputs(s)
+        params = s.detector.params
+        imgs = torch.from_numpy(bench_gray(frames[i:i + SLAM_CHAIN_K])).to(
+            dev)
+        feats = [pipeline.fused_extract(im, params) for im in imgs]
+        stacked = [torch.stack([f[k] for f in feats])
+                   for k in ("desc", "valid", "xy")]
+        got = {"feats": [pipeline.fused_track_chain(
+            *[f(x) for x in stacked], *[f(x) for x in ins], **kw).cpu(
+            ).numpy() for f in (lambda x: x, cpu)],
+            "images": [pipeline.fused_track_chain_images(
+                f(imgs), *[f(x) for x in ins], params=params,
+                **kw)[0].cpu().numpy() for f in (lambda x: x, cpu)]}
+        n = ins[0].shape[0]
+        for k, (g, c) in got.items():
+            worst[k] = tuple(max(u, v) for u, v in zip(
+                worst[k], rows_apart(g, c, n)))
+            least = min(least, float(c[:, 15].min()))
+    return worst, least
+
+
 def slam_card_vs_cpu(dev):
-    """The port's SLAM over the survey on the card and on the CPU, the same
-    frames and the same RANSAC draws (CPU generators). Gates (see
-    SLAM_CARD_KF above): keyframe counts; the card run's fused tracking
-    steps at SLAM_STEP_FRAMES and its local BA windows, each on the card
-    and on the CPU from the same inputs. Prints the whole runs' agreement
+    """The port's SLAM over the survey on the card (twice) and on the CPU,
+    the same frames and the same RANSAC draws (CPU generators). Gates (see
+    SLAM_CARD_KF above): the two card runs equal; each whole run at
+    tests/test_slam.py's bars against the truth; keyframe counts; the
+    card run's fused tracking steps at SLAM_STEP_FRAMES, its local BA
+    windows and the chain functions from its states, each on the card and
+    on the CPU from the same inputs. Prints the whole runs' agreement
     (Sim3-aligned camera centres over the first row and the survey) and
-    both runs' ATE against the truth."""
+    their ATE against the truth."""
     from pislamfusion_tpu_torch import convert
     from pislamfusion_tpu_torch.core.camera import Camera
     from pislamfusion_tpu_torch.models import mapper as tmapper
@@ -2453,7 +2846,7 @@ def slam_card_vs_cpu(dev):
     states, windows = {}, []
 
     def snapshot(slam, i):
-        if i in SLAM_STEP_FRAMES:
+        if i in SLAM_STEP_FRAMES + SLAM_CHAIN_FRAMES:
             states[i] = convert.worldmap_to_numpy(slam)
 
     solve = tmapper.Mapper.solve_local_window
@@ -2467,9 +2860,20 @@ def slam_card_vs_cpu(dev):
         card, p_g, _, _ = slam_survey_run(dev, frames, on_frame=snapshot)
     finally:
         tmapper.Mapper.solve_local_window = staticmethod(solve)
+    card2, p_g2, _, _ = slam_survey_run(dev, frames)
+    kf2 = len(card2.map.keyframes())
+    same_ids = set(p_g) == set(p_g2)
+    twice = max((float(np.abs(p_g[i] - p_g2[i]).max()) for i in p_g
+                 if i in p_g2), default=np.inf)
+    print(f"SLAM survey 320x240, 36 frames, two card runs: keyframes "
+          f"{len(card.map.keyframes())} and {kf2}, tracked "
+          f"{card.frames_tracked} and {card2.frames_tracked}, the same "
+          f"frames tracked {same_ids}, largest pose difference {twice!r}")
     worst = {"pose": 0.0, "inliers": 0, "masks": 0.0, "ba_pose": 0.0,
              "ba_point": 0.0}
     for i, st in sorted(states.items()):
+        if i not in SLAM_STEP_FRAMES:
+            continue
         s = create_slam(slam_survey_cfg(), Camera(320, 240, 260.0, 260.0,
                                                   160.0, 120.0), device=dev)
         convert.load_worldmap_state(s, st)
@@ -2479,14 +2883,9 @@ def slam_card_vs_cpu(dev):
               for ins in (inputs, [
                   {k: v.cpu() for k, v in x.items()} if isinstance(x, dict)
                   else x.cpu() for x in inputs])]
-        scale = max(float(np.linalg.norm(pk[1][8:11])), 1.0)
-        n = inputs[1].shape[0]
-        worst["pose"] = max(worst["pose"], max(np.abs(pk[0][sl] - pk[1][
-            sl]).max() for sl in (slice(0, 7), slice(8, 15))) / scale)
-        worst["inliers"] = max(worst["inliers"], int(max(
-            abs(pk[0][7] - pk[1][7]), abs(pk[0][15] - pk[1][15]))))
-        worst["masks"] = max(worst["masks"], float(np.mean(
-            pk[0][16 + n:16 + 2 * n] != pk[1][16 + n:16 + 2 * n])))
+        for key, v in zip(("pose", "inliers", "masks"),
+                          rows_apart(pk[0], pk[1], inputs[1].shape[0])):
+            worst[key] = max(worst[key], v)
     pick = windows[::max(1, len(windows) // SLAM_BA_WINDOWS)][
         :SLAM_BA_WINDOWS]
     for args, kw in pick:
@@ -2500,8 +2899,20 @@ def slam_card_vs_cpu(dev):
     common = sorted(set(p_c) & set(p_g))
     rms_row, max_row = traj_share(p_g, p_c, [i for i in common if i < 12])
     rms, far = traj_share(p_g, p_c, common)
+    chain, least = slam_chain_card_vs_cpu(dev, states, frames)
     kf = (len(cpu.map.keyframes()), len(card.map.keyframes()))
     ates = [slam_ate(s, gt) for s in (cpu, card)]
+    bars = [s.frames_tracked / s.frames_total > SLAM_MIN_TRACKED
+            and a < SLAM_MAX_ATE_SHARE * sp and s.map.point_num() > 300
+            and len(s.map.keyframes()) >= 2
+            for s, (a, sp, _) in zip((cpu, card), ates)]
+    print(f"SLAM chains card vs CPU, {SLAM_CHAIN_K} frames from the card "
+          f"run's state at frames {list(SLAM_CHAIN_FRAMES)}, each row: "
+          + "; ".join(f"{k} poses within {w[0]:.2e} of the translation "
+                      f"scale, inliers within {w[1]}, match masks "
+                      f"{w[2] * 100:.2f} % apart" for k, w in chain.items())
+          + f"; least inliers of a CPU row {least:g}; gates: poses "
+          f"{SLAM_CHAIN_POSE:g}, inliers 2, masks 1 %")
     print(f"SLAM survey 320x240, 36 frames, card vs CPU: keyframes {kf[1]} "
           f"vs {kf[0]}, tracked {card.frames_tracked} vs "
           f"{cpu.frames_tracked}; the card run's fused tracking steps at "
@@ -2515,7 +2926,17 @@ def slam_card_vs_cpu(dev):
           f"first row {rms_row * 100:.4f} % ({max_row * 100:.4f} %), survey "
           f"{rms * 100:.4f} % ({far * 100:.4f} %); ATE share card "
           f"{ates[1][0] / ates[1][1] * 100:.3f} %, CPU "
-          f"{ates[0][0] / ates[0][1] * 100:.3f} %")
+          f"{ates[0][0] / ates[0][1] * 100:.3f} %; tests/test_slam.py's "
+          f"bars (tracked > {SLAM_MIN_TRACKED:g}, ATE < "
+          f"{SLAM_MAX_ATE_SHARE * 100:g} % of the span, > 300 points) met: "
+          f"card {bars[1]}, CPU {bars[0]}; keyframe gate {SLAM_CARD_KF}")
+    if not (kf2 == kf[1] and same_ids and twice == 0.0):
+        raise AssertionError("SLAM: two card runs of the survey differ")
+    if not (all(bars) and least >= 20
+            and all(w[0] <= SLAM_CHAIN_POSE and w[1] <= 2 and w[2] <= 0.01
+                    for w in chain.values())):
+        raise AssertionError("SLAM: a whole run misses its bars or a chain "
+                             "disagrees card against CPU")
     if not (abs(kf[0] - kf[1]) <= SLAM_CARD_KF and len(pick) >= 1
             and worst["pose"] <= SLAM_STEP_POSE and worst["inliers"] <= 2
             and worst["masks"] <= 0.01 and worst["ba_pose"] <= SLAM_BA_POSE

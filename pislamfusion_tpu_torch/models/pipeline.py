@@ -16,12 +16,15 @@ windowed match against the last frame, pose-only LM, then trackLocalMap):
     packed into ONE [16 + 6N + 2P] float32 tensor, so the host reads one
     buffer (one synchronisation) a frame.
 
+  * `fused_track_chain` / `fused_track_chain_images` - K consecutive
+    frames through `_track_core` with the per-frame carry (last frame's
+    descriptors, point bindings, pose estimate and motion model) kept on
+    the device, their rows stacked into ONE [K, 16 + 6N + 2P] tensor: the
+    online `SLAM.TrackChain` mode reads one buffer a chain.
+
 Nothing here reads back to the host: on the card these functions only
 enqueue work. `models/fastvo.py` runs its frames through the same
 `_detect` and `match_to_slots`.
-
-The chained variants (`fused_track_chain*`) serve only the online
-`SLAM.TrackChain` mode and are not ported (ROADMAP item 5b).
 """
 from __future__ import annotations
 
@@ -316,3 +319,103 @@ def fused_track_packed_feats(feats, prev_desc, prev_valid, aux,
         local_pos, local_desc, local_valid, fx, fy, cx, cy, width, height,
         radius, radius_local, chi2_th)
     return packed
+
+
+def _chain_carry(aux, n: int):
+    """The chain's host inputs, one packed `aux` [4N + 14] f32 =
+    [prev_p3d.ravel (3N), prev_has (N), pose_est_c2w (7), motion (7)]:
+    (p3d [N, 3], has [N], pose_est, motion)."""
+    return (aux[:3 * n].reshape(n, 3), aux[3 * n:4 * n] > 0.5,
+            aux[4 * n:4 * n + 7], aux[4 * n + 7:4 * n + 14])
+
+
+def _chain_step(feats, carry, local_pos, local_desc, local_valid, fx, fy,
+                cx, cy, width, height, radius, radius_local, chi2_th):
+    """One chain step: the motion-model prediction, `_track_core`, and the
+    next carry, as the host tracker would rebuild it from the row (the
+    merged bindings that stay inliers, the refined pose, the motion
+    inv(pose_est) o pose_new). Returns (row, next carry)."""
+    p_desc, p_valid, p_p3d, p_has, pose_est, motion = carry
+    T_pred_w2c = lie.se3_inv(lie.se3_mul(pose_est, motion))
+    packed, p3d_m, w_m, res2 = _track_core(
+        feats, p_desc, p_valid, p_p3d, p_has, T_pred_w2c, local_pos,
+        local_desc, local_valid, fx, fy, cx, cy, width, height, radius,
+        radius_local, chi2_th)
+    pose_new = lie.se3_inv(res2.T_w2c)
+    has_m = (w_m > 0) & (res2.chi2 < chi2_th / fx ** 2)
+    motion_new = lie.se3_mul(lie.se3_inv(pose_est), pose_new)
+    return packed, (feats["desc"], feats["valid"], p3d_m, has_m, pose_new,
+                    motion_new)
+
+
+def fused_track_chain(desc_k, valid_k, xy_k, prev_desc, prev_valid, aux,
+                      local_pos, local_desc, local_valid,
+                      fx: float = 260.0, fy: float = 260.0,
+                      cx: float = 160.0, cy: float = 120.0,
+                      width: int = 320, height: int = 240,
+                      radius: float = 20.0, radius_local: float = 8.0,
+                      chi2_th: float = 5.991):
+    """Track K consecutive frames with the per-frame carry kept ON THE
+    DEVICE, so the host reads ONE packed buffer for the K frames (the
+    JAX package's lax.scan is a Python loop over device tensors here: it
+    enqueues K steps and reads nothing back).
+
+    The local-map stage is FIXED across the chain, the same one-stage
+    staleness the online mapper already imposes on the per-frame path.
+
+    desc_k/valid_k/xy_k: the K frames' padded features, stacked on the
+    leading axis. aux [4N + 14] f32 = [prev_p3d.ravel (3N), prev_has (N),
+    pose_est_c2w (7), motion (7)]: the host tracker's camera-frame motion
+    model, pose_pred = pose_est o motion, re-estimated after each step as
+    Tracker.track does on the host (motion' = inv(pose_est) o pose_new).
+
+    Exactly K steps run. The JAX package pads K to a power of two only to
+    bound its number of compiled programs; eager PyTorch compiles nothing,
+    so a step past the last frame would be work and no more.
+
+    Returns packed [K, 16 + 6N + 2P], `fused_track_packed_feats` rows.
+    Rows after a failure inside the chain are garbage (the carry went
+    bad): the host sees the failure in the row's own inlier fields and
+    tracks the tail again frame by frame."""
+    n = prev_desc.shape[0]
+    carry = (prev_desc, prev_valid) + _chain_carry(aux, n)
+    rows = []
+    for k in range(desc_k.shape[0]):
+        feats = {"desc": desc_k[k], "valid": valid_k[k], "xy": xy_k[k]}
+        row, carry = _chain_step(feats, carry, local_pos, local_desc,
+                                 local_valid, fx, fy, cx, cy, width, height,
+                                 radius, radius_local, chi2_th)
+        rows.append(row)
+    return torch.stack(rows)
+
+
+def fused_track_chain_images(images_k, prev_desc, prev_valid, aux,
+                             local_pos, local_desc, local_valid,
+                             params=orb.OrbParams(), pyramid: str = "flat",
+                             fx: float = 260.0, fy: float = 260.0,
+                             cx: float = 160.0, cy: float = 120.0,
+                             width: int = 320, height: int = 240,
+                             radius: float = 20.0, radius_local: float = 8.0,
+                             chi2_th: float = 5.991):
+    """`fused_track_chain` fed the raw frames: each step converts its frame
+    to gray float and extracts its features (`_detect`: K1, K4, K2 for
+    ORB; K5, K6 for SIFT) before it tracks, so the host uploads the K
+    frames in ONE copy. images_k: [K, H, W] gray or [K, H, W, 3] RGB, any
+    dtype, on the device. aux as in `fused_track_chain`; exactly K steps
+    (see there).
+
+    Returns (packed_k [K, rows], feats_k: each frame's padded features
+    stacked on axis 0, left on the device for the host to slice into the
+    Frames it tracked)."""
+    n = prev_desc.shape[0]
+    carry = (prev_desc, prev_valid) + _chain_carry(aux, n)
+    rows, feats_all = [], []
+    for k in range(images_k.shape[0]):
+        feats = fused_extract(images_k[k], params, pyramid)
+        row, carry = _chain_step(feats, carry, local_pos, local_desc,
+                                 local_valid, fx, fy, cx, cy, width, height,
+                                 radius, radius_local, chi2_th)
+        rows.append(row)
+        feats_all.append(feats)
+    return torch.stack(rows), {key: torch.stack([f[key] for f in feats_all])
+                               for key in feats_all[0]}

@@ -13,14 +13,26 @@ Mapper?=demo, FeatureDetector?=Sift|ORB, SLAM.nFeature, SLAM.MaxOverlap,
 ... Everything numeric runs on one device: the `device` argument, else the
 `SLAM.Device` config key, else `cuda` (an error without a CUDA device).
 
-This port runs the offline configuration (`SLAM.isOnline=0`, the
-reference's default): `track` runs the tracker, the mapper and the loop
-closer in the caller's thread. `SLAM.isOnline=1` raises; the online mode
-is ROADMAP item 5b.
+Offline (`SLAM.isOnline=0`, the reference's default) `track` runs the
+tracker, the mapper and the loop closer in the caller's thread. Online
+(`SLAM.isOnline=1` without `SLAM.forceOffline`) `track` enqueues the
+frame's extraction (`Tracker.predispatch_extract`) and puts the frame on
+a bounded queue (DIYSLAM.cpp:346-363), of depth max(2, SLAM.TrackChain);
+a tracking thread takes it from there (with the loop closer), and the
+mapper handles keyframes on its own worker. With `SLAM.TrackChain` K > 1
+(stock `Tracker.track` only) the feeder queues raw frames and the
+tracking thread drains up to K of them, waiting up to `SLAM.ChainWaitMs`,
+into one `Tracker.track_chain`. `finish(timeout)` ends the thread and
+drains the mapper, each within the timeout. All threads launch on the
+device's default stream, which orders their work. Which keyframes skip
+their local BA depends on timing, so online runs are not reproducible.
 """
 from __future__ import annotations
 
 import functools
+import queue
+import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -147,12 +159,6 @@ class SLAM:
         if device is None:
             device = self.cfg.get_string("SLAM.Device", "") or None
         self.device = resolve_device(device)
-        if self.cfg.get_bool("SLAM.isOnline", False) and \
-                not self.cfg.get_bool("SLAM.forceOffline", False):
-            raise NotImplementedError(
-                "SLAM.isOnline=1 (the tracking thread, the mapper's worker "
-                "pool and SLAM.TrackChain) is not ported yet: ROADMAP item "
-                "5b. Set SLAM.isOnline=0 to run offline")
         self.camera = camera
         self.map: Optional[WorldMap] = None
         self.tracker: Optional[Tracker] = None
@@ -164,8 +170,13 @@ class SLAM:
         self._undistort_xy = None   # lazy Undistorter remap table
         self.trans_queue = _default_trans          # (image, pose) -> mosaic
         self.plane_queue = _default_trans_plane    # ground plane -> mosaic
+        self._online = False
+        self._chain = 1
+        self._queue: Optional[queue.Queue] = None
+        self._worker: Optional[threading.Thread] = None
         self.frames_tracked = 0
         self.frames_total = 0
+        self.track_errors = 0   # per-frame tracking-thread exceptions
         self._track_scale = max(1, self.cfg.get_int("SLAM.TrackScale", 1))
         self._scaled_cam = None
 
@@ -251,6 +262,21 @@ class SLAM:
         self.tracker.use_fused = (self.detector.kind in ("orb", "sift")
                                   and self.tracker.supports_fused
                                   and cfg.get_bool("SLAM.Fused", True))
+        self._online = cfg.get_bool("SLAM.isOnline", False) and \
+            not cfg.get_bool("SLAM.forceOffline", False)
+        # K-frame chained tracking (tracker.track_chain): opt-in, and only
+        # for trackers running the stock track() — variants with their own
+        # per-frame logic (planar, testInit, ...) must not be bypassed
+        self._chain = (max(1, cfg.get_int("SLAM.TrackChain", 1))
+                       if type(self.tracker).track is Tracker.track else 1)
+        if self._online:
+            # queue depth covers the chain so the feeder can stay ahead
+            self._queue = queue.Queue(   # DIYSLAM.cpp:346-353 (depth 2)
+                maxsize=max(2, self._chain))
+            self._worker = threading.Thread(target=self._tracking_loop,
+                                            name="SLAM-tracking",
+                                            daemon=True)
+            self._worker.start()
 
     # ------------------------------------------------------------------ API
     def track(self, image: np.ndarray, timestamp: float,
@@ -330,8 +356,33 @@ class SLAM:
                 frame.pyr = np.asarray(pyr, np.float64)
             if height_ground is not None:
                 frame.height_ground = float(height_ground)
-        self._track_one(frame)
+        if self._online:
+            if self._chain <= 1:
+                # depth-2 overlap (DIYSLAM.cpp:346-363): upload and enqueue
+                # the frame's extraction FROM THIS THREAD, while the
+                # tracking thread still waits on the previous frame
+                self.tracker.predispatch_extract(frame)
+            # chain mode queues the RAW frame: the tracking loop drains K
+            # frames and uploads them in one copy (tracker.track_chain)
+            self._put(frame)
+        else:
+            self._track_one(frame)
         return frame
+
+    def _put(self, item, timeout=None) -> bool:
+        """Put on the bounded tracking queue, waiting while it is full (at
+        most `timeout` seconds when given: then False); an error, not a
+        hang, if the tracking thread has ended."""
+        end = None if timeout is None else time.monotonic() + timeout
+        while True:
+            try:
+                self._queue.put(item, timeout=1.0)
+                return True
+            except queue.Full:
+                if not self._worker.is_alive():
+                    raise RuntimeError("SLAM: the tracking thread has ended")
+                if end is not None and time.monotonic() > end:
+                    return False
 
     def _undistort_for_mosaic(self, img):
         """The mosaic warp assumes a pinhole camera; distorted models
@@ -400,11 +451,80 @@ class SLAM:
                     _msg.advertise("map_transformed").publish(self.map)
         return ok
 
-    def finish(self):
-        """call("Finish") in the reference: a final full-trajectory GPS
-        refit when geo-registered."""
+    def _tracking_loop(self):
+        stop = False
+        while not stop:
+            frame = self._queue.get()
+            if frame is None:
+                return
+            frames = [frame]
+            # chain mode (SLAM.TrackChain > 1): drain frames the feeder
+            # queued so K frames ride ONE upload + ONE packed copy
+            # (tracker.track_chain). The drain WAITS a bounded interval for
+            # the feeder (SLAM.ChainWaitMs, default 150 ms total): a
+            # get_nowait()-only drain degenerates chains to 1-2 frames when
+            # the feeder is not ahead. Waiting trades per-frame latency for
+            # fewer copies; real-time feeds lower ChainWaitMs (or
+            # TrackChain) to taste.
+            if self._chain > 1:
+                deadline = time.monotonic() + self.cfg.get_double(
+                    "SLAM.ChainWaitMs", 150.0) / 1e3
+            while len(frames) < self._chain:
+                try:
+                    if self._chain > 1:
+                        left = deadline - time.monotonic()
+                        nxt = (self._queue.get(timeout=left) if left > 0
+                               else self._queue.get_nowait())
+                    else:
+                        nxt = self._queue.get_nowait()
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    stop = True      # finish() sentinel: flush then exit
+                    break
+                frames.append(nxt)
+            try:
+                self._track_many(frames)
+            except Exception:   # noqa: BLE001 — the loop must outlive bugs
+                # a dead tracking thread would leave the feeder waiting on
+                # the bounded queue; a failing batch counts in
+                # track_errors (every test gates it at 0) and the loop
+                # goes on
+                import traceback
+                from ..core.glog import logger
+                self.track_errors += 1
+                logger.error("tracking thread: frame %d raised:\n%s"
+                             % (frames[0].id, traceback.format_exc()))
+
+    def _track_many(self, frames):
+        """Track a drained batch: the K-frame chain when possible,
+        per-frame for the remainder (chain preconditions unmet, or the
+        frames after a failure inside the chain, whose device carry went
+        bad)."""
+        n = 0
+        if len(frames) > 1:
+            n = self.tracker.track_chain(frames) or 0
+            for fr in frames[:n]:
+                self.frames_total += 1
+                self._after_track(fr, True)
+        for fr in frames[n:]:
+            self._track_one(fr)
+
+    def finish(self, timeout: float = 60.0):
+        """call("Finish") in the reference: end the online tracking thread
+        (after the frames queued before this call) and drain the mapper's
+        worker, each waiting at most `timeout` seconds, then a final
+        full-trajectory GPS refit when geo-registered. Returns whether
+        both ended in time (offline always)."""
+        done = True
+        if self._online and self._worker is not None:
+            t0 = time.monotonic()
+            if self._worker.is_alive() and self._put(None, timeout):
+                self._worker.join(timeout=max(
+                    0.0, timeout - (time.monotonic() - t0)))
+            done = not self._worker.is_alive()
         if self.mapper is not None:
-            self.mapper.finish()
+            done = self.mapper.finish(timeout) and done
             if self.mapper.gps_fitted:
                 self.mapper.fit_gps_all()
         # per-run statistics some trackers keep (TrackerPlanar's
@@ -422,6 +542,7 @@ class SLAM:
                                                      1):
             from ..core.messenger import messenger as _msg
             _msg.advertise("map_transformed").publish(self.map)
+        return done
 
     def call(self, command: str, arg=None):
         """String-command surface (DIYSLAM.cpp:366-394)."""

@@ -6,7 +6,9 @@ Port of pislamfusion_tpu/models/tracker.py, the reference's default tracker
 trackLastFrame with window matches + pose-only LM (:636-793), PnP-RANSAC
 relocalization against keyframes (:795-902, 1307-1350), trackLocalMap
 (:1107-1305), and the FOV-overlap keyframe decision vs SLAM.MaxOverlap
-(:1420-1502); with the `demo` tracker and the default relocalizer.
+(:1420-1502); with the `demo` tracker, the default relocalizer and the
+reference's variants `ransacPnP`, `planar`, `testInit`/`liu_testInit`,
+`testLoopDetector`, `loadmap` and `rtsfmInit`.
 
 Host code does the bookkeeping in numpy; all per-keypoint work (descriptor
 distance matrices, windowed matching, pose LM, PnP RANSAC, two-view init)
@@ -16,13 +18,17 @@ matching and both pose LMs and reads ONE packed buffer back. RANSAC samples
 come from a CPU `torch.Generator` seeded `SLAM.Seed`, as the reference's
 key is, so a run on the card and one on the CPU take the same hypotheses.
 
-Not ported here (ROADMAP item 5b): the online K-frame chain (`track_chain`)
-and the tracker variants ransacPnP, planar, testInit, testLoopDetector,
-loadmap and rtsfmInit.
+The online mode's `SLAM.TrackChain` tracks K queued frames at a time
+(`track_chain`: one upload of the K raw frames from pinned memory, K
+enqueued steps with the carry on the device, one packed copy back), and
+its feeder thread enqueues each frame's extraction ahead of the tracking
+thread (`predispatch_extract`). Every thread launches on PyTorch's one
+default stream of the device, which orders their work.
 """
 from __future__ import annotations
 
 import enum
+import os
 from typing import Optional
 
 import numpy as np
@@ -35,6 +41,7 @@ from ..core.timer import timer
 from ..ops import ba, matching, ransac
 from ..utils import host_se3 as hse3
 from ..utils.padding import pad_to
+from . import pipeline
 from .frame import Frame, MapPoint
 from .pipeline import fused_extract, fused_track_packed_feats
 from .worldmap import WorldMap
@@ -78,11 +85,22 @@ class Tracker:
         # stage toggles (TrackerOpt.cpp:638, :1109-1110)
         self._track_last = not cfg.get_bool("DisableTrackLastFrame", False)
         self._track_submap = cfg.get_bool("EnableTrackSubMap", True)
+        # the lengths of the chains track_chain enqueued, in order
+        self.chain_lengths: list = []
 
     def _t(self, a, dtype=None):
         """A host array as a tensor on the tracker's device."""
         t = torch.from_numpy(np.ascontiguousarray(a))
         return t.to(self.device, dtype)
+
+    def _upload(self, a):
+        """A host array on the tracker's device in one copy: on CUDA from
+        pinned memory, without waiting for the copy (the caching host
+        allocator keeps the pinned buffer until the copy has run)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def on_map_transformed(self, S: np.ndarray):
         """The mapper applied a global SIM3 (GPS fit): frame objects are
@@ -165,6 +183,119 @@ class Tracker:
                    f"{'OK' if ok else 'FAIL'}"
                    f"{',KF' if frame.is_keyframe else ''}")
             return ok
+
+    def track_chain(self, frames) -> Optional[int]:
+        """Track up to K consecutive frames with ONE enqueued chain
+        (pipeline.fused_track_chain_images, or fused_track_chain for
+        frames whose features were extracted already) and ONE copy of the
+        packed rows: the per-frame carry (features, point bindings, motion
+        model) stays on the device.
+
+        Returns the number of frames CONSUMED — all consumed frames
+        tracked, with the per-frame bookkeeping of `track` (motion model,
+        keyframe decision, logging, the t-2 release) — or None when the
+        chain's preconditions do not hold or a map transform landed while
+        it ran. Frames past the consumed count (the first failure inside
+        the chain and everything after it, whose device carry went bad)
+        must be fed again through the per-frame `track`, which runs the
+        fallback cascade. The local-map stage is FIXED across the chain:
+        keyframe growth lands on the next chain."""
+        if (not self.use_fused or self.status != Status.TRACKING
+                or self.detector is None or len(frames) < 2
+                or not self._track_last or not self._track_submap):
+            return None
+        last = self.last_frame
+        if last is None or last.n_kp == 0 or last.n_tracked() < 20:
+            return None
+        if self._local_stage is None:
+            self._stage_local_map()
+        cam = frames[0].camera
+        # the locked snapshot of _track_fused: the stage and the version
+        # baseline under one lock
+        with timer.scope("Tracker::chainGather"), self.map.update_lock:
+            map_version = self.map.version
+            stage = self._local_stage
+            if stage is None:
+                return None
+            pos, has = self._gather_frame_points(last)
+        lpos, ldesc, lvalid, ids_p = stage
+        fd = last.feats_dev
+        if fd is not None:
+            last_desc, last_valid = fd["desc"], fd["valid"]
+        else:
+            last_desc, last_valid = self._t(last.desc), self._t(last.valid)
+        radius = self.cfg.get_double("SLAM.WindowRadius", 20.0)
+        r_local = self.cfg.get_double("SLAM.LocalWindowRadius", 8.0)
+        aux = self._t(np.concatenate([
+            pos.reshape(-1).astype(np.float32), has.astype(np.float32),
+            np.asarray(last.pose_c2w, np.float32),
+            np.asarray(self.motion, np.float32)]))
+        geo = dict(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
+                   width=cam.width, height=cam.height, radius=radius,
+                   radius_local=r_local, chi2_th=self.chi2_px)
+        # RAW-IMAGE chain (frames queued without extraction, the default
+        # with SLAM.TrackChain > 1): the K frames go up in one copy and
+        # each step extracts its own
+        use_images = all(fr.feats_dev is None and fr._feats is None
+                         and fr.image is not None for fr in frames)
+        if use_images:
+            with timer.scope("Tracker::chainUpload"):
+                imgs = self._upload(np.stack([np.asarray(fr.image)
+                                              for fr in frames]))
+            with timer.scope("Tracker::chainDispatch"):
+                packed_k, feats_k = pipeline.fused_track_chain_images(
+                    imgs, last_desc, last_valid, aux, lpos, ldesc, lvalid,
+                    params=self.detector.params,
+                    pyramid=self.detector.pyramid, **geo)
+            for i, fr in enumerate(frames):
+                fr.set_features_device({k: v[i] for k, v in feats_k.items()},
+                                       self.detector.kind)
+        else:
+            for fr in frames:
+                if fr.feats_dev is None:
+                    self.predispatch_extract(fr)
+                if fr.feats_dev is None:
+                    return None
+            stacked = [torch.stack([fr.feats_dev[k] for fr in frames])
+                       for k in ("desc", "valid", "xy")]
+            with timer.scope("Tracker::chainDispatch"):
+                packed_k = pipeline.fused_track_chain(
+                    *stacked, last_desc, last_valid, aux, lpos, ldesc,
+                    lvalid, **geo)
+        self.chain_lengths.append(len(frames))
+        with timer.scope("Tracker::chainFetch"):
+            packed_k = packed_k.cpu().numpy()   # ONE copy, K frames
+        if self.map.version != map_version:
+            return None   # the gauge changed while the chain ran
+        P = int(lpos.shape[0])
+        prev, prev_has = last, has
+        consumed = 0
+        for k, frame in enumerate(frames):
+            with glog.ScopedLogger(self.cfg, bit=1) as lg:
+                self._log = lg
+                lg << f"frame {frame.id} [TRACKING chain:{k}]"
+                ok = self._apply_packed(frame, prev, packed_k[k], ids_p, P,
+                                        prev_has)
+                if not ok:
+                    lg << ",FAIL(chain tail re-fed)"
+                    break
+                # per-frame bookkeeping, as track() does it
+                prev2 = getattr(self, "last_prev", None)
+                if prev2 is not None and prev2 is not self.last_frame \
+                        and not prev2.is_keyframe:
+                    prev2.release_device_features()
+                self.last_prev = self.last_frame
+                self.motion = hse3.se3_mul(
+                    hse3.se3_inv(self.last_frame.pose_c2w),
+                    frame.pose_c2w).astype(np.float32)
+                self.last_frame = frame
+                self.lost_count = 0
+                self._maybe_keyframe(frame)
+                lg << (f",inliers {getattr(self, '_n_inliers', 0)},OK"
+                       f"{',KF' if frame.is_keyframe else ''}")
+                consumed += 1
+                prev, prev_has = frame, frame.kp2mp >= 0
+        return consumed
 
     # ----------------------------------------------------------- bootstrap
     def _initialize(self, frame: Frame) -> bool:
@@ -801,6 +932,490 @@ class TrackerDemo(Tracker):
 
     def _track_ref_kf_epipolar(self, frame: Frame, kf: Frame) -> bool:
         return False   # TrackerDemo has no inverse-depth 2D-2D fallback
+
+
+@TRACKERS.register("ransacPnP")
+class TrackerRansacPnP(Tracker):
+    """The reference's 'ransacPnP' tracker
+    (GSLAM-DIYSLAM/src/zhaoyong/TrackerRansacPnP.cpp): NO motion model —
+    last-frame observations are window-matched around their LAST-frame
+    pixel locations with a wide radius (0.05 * image width, :521), the
+    pose comes from findPnPRansac over those 3D-2D matches (:508-652)
+    with an LM refine, then the shared trackLocalMap. Robust to erratic
+    inter-frame motion at the price of a wider search; registered for
+    ablation like the reference's student variants.
+
+    Inherits the state machine; narrows trackLastFrame only (the fused
+    step bakes the 'opt' motion-model design)."""
+
+    supports_fused = False
+
+    def _track_last_frame(self, frame: Frame) -> bool:
+        last = self.last_frame
+        if last.n_tracked() < 20:
+            return False
+        pos, has = self._gather_frame_points(last)
+        radius = 0.05 * frame.camera.width          # :521
+        wmask = matching.window_mask(self._t(last.xy.astype(np.float32)),
+                                     self._t(frame.xy), radius)
+        idx, ok = matching.match_descriptors(
+            self._t(last.desc), self._t(has & last.valid),
+            self._t(frame.desc), self._t(frame.valid),
+            last.desc_kind, window=wmask)
+        idxn, okn = idx.cpu().numpy(), ok.cpu().numpy()
+        sel = np.nonzero(okn & has)[0]
+        if sel.size < 20:
+            return False
+        # PnP-RANSAC for the initial pose (arrays of the keypoint budget's
+        # fixed size)
+        n = frame.n_kp
+        p3d = np.zeros((n, 3), np.float32)
+        val = np.zeros(n, bool)
+        p3d[idxn[sel]] = pos[sel]
+        val[idxn[sel]] = True
+        res = ransac.find_pnp(self.generator, self._t(p3d),
+                              self._t(frame.rays[:, :2]), self._t(val))
+        if not bool(res.ok):
+            return False
+        T_c2w = hse3.se3_inv(res.model.cpu().numpy()).astype(np.float32)
+        # shared pose-LM refine + kp2mp assignment from the RANSAC pose
+        return self._solve_pose(frame, T_c2w, pos, has, idxn, okn, last)
+
+
+@TRACKERS.register("planar")
+class TrackerPlanar(Tracker):
+    """The reference's 'planar' tracker
+    (GSLAM-DIYSLAM/src/zhaoyong/TrackerPlanar.cpp, registered as
+    `Tracker?=planar` :657): an RTSfM-style GEO-REGISTERED pair-chain
+    reconstructor rather than an incremental VO chain. It never leaves
+    the initializing state (track() :304-317): every >= 1 s of frame
+    time (:421) it two-view-initializes the (lastKF, current) pair
+    (:430-470), snaps BOTH poses onto their GPS+attitude priory poses
+    with map scale from the GPS/estimated baseline ratio
+    (fitGPS :319-345), refines the pair with a 2-frame GPS-prior bundle
+    adjustment over the triangulated points (:530-580), and inserts the
+    pair + its points directly in geo coordinates (:589-612); the pair
+    reference then advances.
+
+    Divergences (as the JAX package): poses land in the local ENU frame
+    instead of ECEF-minus-`Origin` (:282, :585) — same information,
+    different chart; and without GPS priors the reference clears the map
+    every pair (:611 `_map->clear()`), which this build mirrors by
+    replacing the previous pair.
+
+    The per-pair success statistics the reference's Evaluater prints at
+    shutdown (:55-78) are logged by `report()` (wired to SLAM.finish)."""
+
+    supports_fused = False
+
+    def __init__(self, wmap: WorldMap, cfg, mapper=None, device=None):
+        super().__init__(wmap, cfg, mapper, device)
+        self._pair_ref: Optional[Frame] = None
+        self._access = 0
+        self._successes: list[tuple[int, int]] = []
+        self.pt_cap = cfg.get_int("Planar.PointCap", 512)
+        self.min_interval = cfg.get_double("Planar.MinInterval", 1.0)
+
+    def track(self, frame: Frame) -> bool:
+        with timer.scope("Tracker::track"), \
+                glog.ScopedLogger(self.cfg, bit=1) as lg:
+            self._log = lg
+            lg << f"frame {frame.id} [PLANAR]"
+            if self._pair_ref is None:   # first frame: seed the pair chain
+                self.ensure_features(frame)
+                self._pair_ref = frame
+                self.last_frame = frame
+                # the reference returns true here (:419) but never feeds
+                # the mosaic itself; SLAM feeds the mosaic for every
+                # tracked frame, so the seed reports untracked to keep its
+                # (not yet estimated) identity pose out of the composite
+                return False
+            if frame.timestamp - self._pair_ref.timestamp \
+                    < self.min_interval:   # :421
+                lg << ",skip(dt)"
+                return False
+            self.ensure_features(frame)
+            ok = self._pair_initialize(frame, lg)
+            if ok:
+                self.last_frame = frame
+                self.status = Status.TRACKING
+            return ok
+
+    def report(self):
+        """Evaluater::report (:65-74): success count + mean match/point
+        stats over the run."""
+        if not self._successes:
+            glog.logger.info(f"TrackerPlanar: 0/{self._access} pairs")
+            return
+        m = int(np.mean([s[0] for s in self._successes]))
+        p = int(np.mean([s[1] for s in self._successes]))
+        glog.logger.info(
+            f"TrackerPlanar: {len(self._successes)}/{self._access} pairs, "
+            f"mean matches {m}, mean points {p}")
+
+    # ----------------------------------------------------------- pair init
+    def _pair_initialize(self, frame: Frame, lg) -> bool:
+        ref = self._pair_ref
+        self._access += 1
+        # match4initialize with the full configured Matcher (:430)
+        idx, okm = self._get_matcher()(self.generator, ref, frame)
+        idxn, okn = idx.cpu().numpy(), okm.cpu().numpy()
+        n_match = int(okn.sum())
+        lg << f",match {n_match}"
+        if n_match < max(100, ref.n_kp // 10):   # :430
+            self._pair_ref = frame
+            return False
+        ra = ref.rays[:, :2]
+        rb = frame.rays[np.where(okn, idxn, 0)][:, :2]
+        res = self._get_initializer()(
+            self.generator, self._t(ra), self._t(rb), self._t(okn),
+            sigma=max(1.0 / ref.camera.fx, 1e-4))
+        if not bool(res.ok):   # :478 `_initializer->initialize` failed
+            self._pair_ref = frame
+            lg << ",init FAIL"
+            return False
+        mask = res.mask.cpu().numpy()
+        pts = res.points.cpu().numpy()        # ref-camera gauge
+        T_c2w = res.T_c2w.cpu().numpy()       # cur -> ref
+
+        pr1, pr2 = ref.priory_pose(), frame.priory_pose()
+        if pr1 is not None and pr2 is not None:
+            pose_ref, pose_cur, pts_w, n_pts = self._fit_pair_gps(
+                ref, frame, pr1[0], pr2[0], T_c2w, pts, mask, idxn)
+            self.cfg.set("GPS.Fitted", "1")   # :584
+        else:
+            # no GPS: the reference keeps only the latest pair
+            # (`_map->clear()`, :611). Clear under update_lock + version
+            # bump so version-checked snapshots can't straddle it.
+            with self.map.update_lock:
+                for fid in [f.id for f in self.map.frames()]:
+                    self.map.erase_frame(fid)
+                for pid in [p.id for p in self.map.points()]:
+                    self.map.erase_point(pid)
+                self.map.version += 1
+            pose_ref = np.array([0, 0, 0, 0, 0, 0, 1.0], np.float32)
+            pose_cur = T_c2w.astype(np.float32)
+            sel = np.nonzero(mask)[0][:self.pt_cap]
+            pts_w, n_pts = pts[sel], len(sel)
+            self._pair_sel = sel
+        # insert the pair + points (:589-612)
+        self._insert_pair(ref, frame, pose_ref, pose_cur, pts_w, n_pts,
+                          idxn)
+        lg << f",pair OK,{n_pts} pts"
+        self._successes.append((n_match, n_pts))
+        self._pair_ref = frame
+        return True
+
+    def _fit_pair_gps(self, ref, frame, T1, T2, T_c2w, pts, mask, idxn):
+        """fitGPS (:319-345) + the 2-frame GPS-prior BA (:530-580):
+        scale from the GPS/estimated baseline ratio, poses snapped to
+        the priors, then joint LM over both poses and the pair's points
+        with SE3 priors weighted by the GPS/attitude sigmas."""
+        d_gps = float(np.linalg.norm(T2[:3] - T1[:3]))
+        d_est = float(np.linalg.norm(T_c2w[:3]))
+        scale = d_gps / max(d_est, 1e-9)
+        # ref-gauge -> geo: fold the scale into the ESTIMATED pose before
+        # composing (the reference composes prior2 o inv(unscaled est)
+        # and lets its BA absorb the resulting rigid offset of the mapped
+        # cloud, :337-340; scaling first places the ref camera on its
+        # prior exactly, a strictly better BA start)
+        T_est = T_c2w.astype(np.float64).copy()
+        T_est[:3] *= scale
+        l2e = hse3.se3_mul(T2, hse3.se3_inv(T_est))
+        sel = np.nonzero(mask)[0][:self.pt_cap]
+        self._pair_sel = sel
+        pts_w = hse3.se3_apply(l2e, pts[sel] * scale).astype(np.float32)
+        P = self.pt_cap
+        n = len(sel)
+        pts_p, pmask = pad_to(pts_w, P)
+        obs_f = np.concatenate([np.zeros(n, np.int32),
+                                np.ones(n, np.int32)])
+        obs_p = np.concatenate([np.arange(n, dtype=np.int32)] * 2)
+        obs_uv = np.concatenate(
+            [ref.rays[sel][:, :2],
+             frame.rays[np.where(mask, idxn, 0)][sel][:, :2]])
+        obs_fp, omask = pad_to(obs_f, 2 * P)
+        obs_pp, _ = pad_to(obs_p, 2 * P)
+        obs_uvp, _ = pad_to(obs_uv.astype(np.float32), 2 * P)
+        poses_w2c = np.stack([hse3.se3_inv(T1), hse3.se3_inv(T2)]).astype(
+            np.float32)
+        info = np.zeros((2, 6), np.float32)
+        for i, fr in enumerate((ref, frame)):
+            info[i, :3] = 1.0 / max(fr.gps_acc, 0.1) ** 2
+            # attitude information: the reference's default PYR sigma is
+            # (1,10,10) deg when unmeasured (:100-103); one isotropic
+            # 10-deg sigma keeps the prior rotation soft
+            info[i, 3:] = 1.0 / np.radians(10.0) ** 2
+        prob = ba.make_problem(
+            poses=poses_w2c, pose_fixed=np.zeros(2, bool), points=pts_p,
+            point_fixed=~pmask, obs_frame=obs_fp, obs_point=obs_pp,
+            obs_uv=obs_uvp, obs_weight=omask.astype(np.float32),
+            prior_frame=np.arange(2, dtype=np.int32),
+            prior_pose=poses_w2c.copy(), prior_info=info,
+            device=self.device)
+        new_poses, new_pts, _ = ba.optimize(
+            prob, iters=self.cfg.get_int("Planar.BAIters", 15))
+        new_poses, new_pts = new_poses.cpu().numpy(), new_pts.cpu().numpy()
+        pose_ref = hse3.se3_inv(new_poses[0]).astype(np.float32)
+        pose_cur = hse3.se3_inv(new_poses[1]).astype(np.float32)
+        return pose_ref, pose_cur, new_pts[:n], n
+
+    def _insert_pair(self, ref, frame, pose_ref, pose_cur, pts_w, n_pts,
+                     idxn):
+        ref.pose_c2w = np.asarray(pose_ref, np.float32)
+        frame.pose_c2w = np.asarray(pose_cur, np.float32)
+        color_img = ref.color if ref.color is not None else ref.image
+        with self.map.update_lock:
+            for fr in (ref, frame):
+                if self.map.frame(fr.id) is None:
+                    fr.is_keyframe = True
+                    self.map.insert_frame(fr)
+            sel = self._pair_sel
+            for j in range(n_pts):
+                i = int(sel[j])
+                pid = self.map.get_pid()
+                kp_ref, kp_cur = i, int(idxn[i])
+                color = np.full(3, 128, np.uint8)
+                if color_img is not None:
+                    x, y = ref.xy[kp_ref].astype(int)
+                    if 0 <= y < color_img.shape[0] \
+                            and 0 <= x < color_img.shape[1]:
+                        c = color_img[y, x]
+                        color = (np.full(3, int(c), np.uint8)
+                                 if np.ndim(c) == 0 else c.astype(np.uint8))
+                mp = MapPoint(id=pid, position=pts_w[j].astype(np.float32),
+                              descriptor=np.asarray(frame.desc[kp_cur]),
+                              color=color, ref_frame=frame.id)
+                # normal towards the observing camera (:598)
+                view = pose_cur[:3] - pts_w[j]
+                mp.normal = (view / max(np.linalg.norm(view), 1e-9)).astype(
+                    np.float32)
+                self.map.insert_point(mp)
+                self.map.add_observation(pid, ref.id, kp_ref)
+                self.map.add_observation(pid, frame.id, kp_cur)
+            ref.connections[frame.id] = n_pts
+            frame.connections[ref.id] = n_pts
+            self.map.version += 1
+
+
+@TRACKERS.register("liu_testInit")
+@TRACKERS.register("testInit")
+class TrackerInitTest(Tracker):
+    """`Tracker?=liu_testInit` (liuguochen/TrackTestInitializer.cpp:680):
+    an initializer EVALUATION harness, not a SLAM tracker. Every frame it
+    matches against the previous frame and runs the configured
+    `Initializer?=` on the pair, accumulating what the reference's
+    Evaluater reports at exit — successes/attempts, mean match count,
+    mean inlier count (:55-78, success() at :673). Builds no map;
+    `report()` returns the stats dict (the reference LOG(INFO)s it)."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.attempts = 0
+        self.successes: list = []   # (n_match, n_inliers) per accepted pair
+
+    def track(self, frame: Frame) -> bool:
+        self.ensure_features(frame)
+        ref = self.ref_frame
+        self.ref_frame = frame
+        self.last_frame = frame
+        if ref is None or ref.n_kp == 0 or frame.n_kp == 0:
+            return False
+        self.attempts += 1
+        idx, ok = self._get_matcher()(self.generator, ref, frame)
+        idxn, okn = idx.cpu().numpy(), ok.cpu().numpy()
+        n_match = int(okn.sum())
+        # match4initialize acceptance gate (:436): at least 100 matches or
+        # a tenth of the reference frame's keypoints
+        if n_match < max(100, ref.n_kp // 10):
+            return False
+        ra = ref.rays[:, :2]
+        rb = frame.rays[np.where(okn, idxn, 0)][:, :2]
+        res = self._get_initializer()(
+            self.generator, self._t(ra), self._t(rb), self._t(okn),
+            sigma=max(1.0 / ref.camera.fx, 1e-4))
+        if not bool(res.ok):
+            return False
+        n_inl = int(res.mask.cpu().numpy().sum())
+        self.successes.append((n_match, n_inl))
+        self._n_inliers = n_inl
+        return True
+
+    def report(self) -> dict:
+        """Evaluater::report (:66-77): mean matches/inliers over successes."""
+        n = len(self.successes)
+        return {
+            "success": n, "attempts": self.attempts,
+            "mean_matches": int(np.mean([m for m, _ in self.successes]))
+            if n else 0,
+            "mean_inliers": int(np.mean([i for _, i in self.successes]))
+            if n else 0,
+        }
+
+
+@TRACKERS.register("testLoopDetector")
+class TrackerLoopTest(Tracker):
+    """`Tracker?=testLoopDetector` (zhaoyong/TrackerTestLoopDetector.cpp:
+    97-169): a loop-DETECTOR evaluation harness — no pose estimation, no
+    triangulation. A frame becomes a keyframe when its matches to the last
+    keyframe fall under 200 (and >0.5 s passed, :116); each keyframe
+    queries the wired `LoopDetector?=` and match-verifies every candidate
+    (>=50 matches, :150-152). Verified (ref_id, frame_id) loop pairs land
+    in `self.loops_found` (the reference LOG(INFO)s "LoopFound")."""
+
+    supports_fused = False
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self._local_kfs: list = []    # <=6 recent keyframes (:125)
+        self.loops_found: list = []   # verified (ref_id, frame_id)
+        self.n_keyframes = 0
+
+    def track(self, frame: Frame) -> bool:
+        self.ensure_features(frame)
+        self.last_frame = frame
+        if frame.n_kp < 300:          # :103
+            return False
+        # is_keyframe stays False — setting it would route these
+        # identity-pose frames into SLAM's loop_closer.try_close, which
+        # (a) re-inserts them into the same detector (double posting-list
+        # entries halve the common-words gate) and (b) attempts real SE3
+        # closures on an evaluation-only map
+        if not self._local_kfs:
+            self.map.insert_frame(frame)
+            self._local_kfs.append(frame)
+            self.n_keyframes += 1
+            if self.loop_detector is not None:
+                self.loop_detector.insert(frame)
+            return True
+        last = self._local_kfs[-1]
+        _, ok = self._get_matcher()(self.generator, last, frame)
+        n_match = int(ok.sum())
+        if n_match < 200 and frame.timestamp - last.timestamp > 0.5:
+            self.n_keyframes += 1
+            # parent connections so the detector's exclusion set mirrors
+            # the reference's addParent before obtainCandidates (:117-123)
+            for ref in self._local_kfs:
+                frame.connections[ref.id] = n_match
+            if len(self._local_kfs) > 5:
+                self._local_kfs.pop(0)   # :125
+            self._local_kfs.append(frame)
+            cands = (self.loop_detector.candidates(frame)
+                     if self.loop_detector is not None else [])
+            self.map.insert_frame(frame)
+            if self.loop_detector is not None:
+                self.loop_detector.insert(frame)
+            frame.connections = {}       # clearParents (:136)
+            for fid in cands:
+                ref = self.map.frame(fid)
+                if ref is None:
+                    continue
+                _, o2 = self._get_matcher()(self.generator, ref, frame)
+                if int(o2.sum()) < 50:   # :150-152
+                    continue
+                self.loops_found.append((fid, frame.id))
+        return True
+
+
+@TRACKERS.register("loadmap")
+class TrackerLoadMap(Tracker):
+    """`Tracker?=loadmap` (zhaoyong/TrackerLoadMap.cpp:18-40): a map
+    VIEWER tracker — the reference loads `MapFile2Load` into the map for
+    the GUI handle and its track() always returns false (no tracking at
+    all). SLAM itself performs the MapFile2Load load (slam.py, the
+    DIYSLAM.cpp:256-258 path, through the port's `io/maphash` for a
+    `.maphash` file), so this tracker only keeps the contract: never
+    track, never touch the loaded map."""
+
+    supports_fused = False
+
+    def __init__(self, wmap: WorldMap, cfg, mapper=None, device=None):
+        super().__init__(wmap, cfg, mapper, device)
+        # the reference defaults the key to "map.gmap" (:33) and loads
+        # eagerly; mirror that when SLAM's own MapFile2Load didn't run
+        # (standalone TRACKERS.create construction)
+        path = cfg.get_string("MapFile2Load", "map.gmap")
+        if self.map.frame_num() == 0 and os.path.isfile(path):
+            self.map.load(path)
+
+    def track(self, frame: Frame) -> bool:
+        return False   # :25-28
+
+
+@TRACKERS.register("rtsfmInit")
+class TrackerRTSfMInit(TrackerPlanar):
+    """`Tracker?=rtsfmInit` (zhaoyong/TrackerRTSfMInit.cpp): the
+    real-time-SfM initializer tracker. Two states (track :343-363):
+
+    * initializing — pairwise initialize against the last keyframe
+      (initialize :465-558: match4initialize gate, two-view init, GPS
+      SIM3 snap via fitGPS :367-460 + a 2-frame GPS-prior bundle
+      adjustment :579-640, `_map->clear()` without GPS :643-648) — the
+      SAME machinery as TrackerPlanar (same author, shared fitGPS), so
+      this subclass reuses `_pair_initialize` wholesale; success enters
+      tracking.
+    * tracking — trackExistMap (:1133-1173): obtain retrieval candidates
+      for the current frame and pairwise RE-initialize against up to 8 of
+      them until one succeeds; failure falls back to initializing
+      (:361-362).
+
+    Divergence (as the JAX package): the reference additionally
+    triangulates points against the OTHER matched candidates
+    (createMapPoints :1166-1170) and runs a localOptimize over the new
+    connections; this build registers the single successful pair (its
+    2-frame GPS-prior BA plays the localOptimize role)."""
+
+    def track(self, frame: Frame) -> bool:
+        with timer.scope("Tracker::track"), \
+                glog.ScopedLogger(self.cfg, bit=1) as lg:
+            self._log = lg
+            state = "RTSFM" if self.status == Status.TRACKING else "INIT"
+            lg << f"frame {frame.id} [{state}]"
+            self.ensure_features(frame)
+            if self.status != Status.TRACKING:
+                if self._pair_ref is None:   # initialize :467 (seed)
+                    self._pair_ref = frame
+                    self.last_frame = frame
+                    return False
+                if frame.timestamp - self._pair_ref.timestamp < \
+                        self.min_interval:   # :468 (dt >= 1 s)
+                    lg << ",skip(dt)"
+                    return False
+                ok = self._pair_initialize(frame, lg)
+                if ok:
+                    self.last_frame = frame
+                    self.status = Status.TRACKING   # :352-355
+                return ok
+            ok = self._track_exist_map(frame, lg)
+            if ok:
+                self.last_frame = frame
+            else:
+                self.status = Status.INIT           # :361-362
+                self._pair_ref = frame
+            return ok
+
+    def _track_exist_map(self, frame: Frame, lg) -> bool:
+        """trackExistMap (:1133-1173): candidates -> pairwise re-init."""
+        cands = []
+        if self.loop_detector is not None:
+            cands = list(self.loop_detector.candidates(frame))
+        if not cands:
+            # no detector / no candidates: recent keyframes, newest first
+            # (the reference returns false on no candidates :1136-1140;
+            # recency stands in for MapHash's BoW index when no
+            # LoopDetector is wired)
+            cands = [f.id for f in self.map.keyframes()[::-1]]
+        if not cands:
+            lg << ",no candidates"
+            return False
+        for fid in cands[:8]:                       # :1143 (i < 8)
+            ref = self.map.frame(int(fid))
+            if ref is None or ref.n_kp == 0 or ref.desc is None:
+                continue
+            self._pair_ref = ref                    # :1150 (_lastKF = ref)
+            if self._pair_initialize(frame, lg):    # :1151 initialize()
+                return True
+        return False
 
 
 @RELOCALIZERS.register("demo")

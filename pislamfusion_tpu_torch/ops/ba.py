@@ -8,11 +8,12 @@ GSLAM-DIYSLAM/src/zhaoyong/optimizerG2O/Optimizer.cpp):
   (GSLAM's BundleGraph, Optimizer.h:150-172), padded to fixed shapes.
 - `optimize`: the Schur-complement LM. Per-point 3x3 blocks are inverted
   in closed form, the reduced camera system (6F x 6F) is assembled
-  densely (the scatters are `index_add_` / `index_put_`, atomic and so
-  not deterministic on the card) and solved. `tol == 0` runs a fixed
-  number of steps with no host synchronisation (accept/reject is a
-  `torch.where`, the solves `*_ex` variants that do not check errors);
-  `tol > 0` reads one flag a step and stops early.
+  densely and solved. Every scatter sums in a fixed order (`_index_add_`,
+  and `index_put_` with accumulate, which sorts its indices on CUDA), so
+  the same inputs give the same bits on every run, on the card too.
+  `tol == 0` runs a fixed number of steps with no host synchronisation
+  (accept/reject is a `torch.where`, the solves `*_ex` variants that do
+  not check errors); `tol > 0` reads one flag a step and stops early.
 - `optimize_pose` (OptimizerG2O::optimizePnP, Optimizer.cpp:18-165),
   `optimize_pose_invdepth` (EdgeSE3InvDepth), the SE3 and Sim3 pose
   graphs (dense and matrix-free CG), `optimize_icp` and `fit_sim3`.
@@ -312,6 +313,18 @@ def _eye(n, like):
     return torch.eye(n, dtype=like.dtype, device=like.device)
 
 
+def _index_add_(out, index, src):
+    """out.index_add_(0, index, src), summed in a fixed order. On the CPU
+    `index_add_` is a loop in index order. On CUDA it adds by float atomics
+    in no fixed order, so two runs of one BA part in their last bits and a
+    whole SLAM run drifts apart from itself; there `index_put_` with
+    accumulate, which sorts the indices first (a stable radix sort) and
+    sums each index's rows in one fixed order. Returns out."""
+    if out.device.type == "cpu":
+        return out.index_add_(0, index, src)
+    return out.index_put_((index,), src, accumulate=True)
+
+
 def _reproj_normal_terms(problem: BAProblem, huber_delta: float):
     """Partial normal-equation terms of the reprojection edges: per-point
     blocks Hpp [P,3,3], bp [P,3]; camera blocks Hcc [F,6,6], bc [F,6];
@@ -328,14 +341,14 @@ def _reproj_normal_terms(problem: BAProblem, huber_delta: float):
     Jp = Jp * ((w * freep) ** 0.5)[:, None, None]
     rw = r * torch.sqrt(w)[:, None]
     dt, dev = r.dtype, r.device
-    Hpp = torch.zeros((P, 3, 3), dtype=dt, device=dev).index_add_(
-        0, op, Jp.mT @ Jp)
-    bp = torch.zeros((P, 3), dtype=dt, device=dev).index_add_(
-        0, op, -torch.einsum("oki,ok->oi", Jp, rw))
-    Hcc = torch.zeros((F, 6, 6), dtype=dt, device=dev).index_add_(
-        0, of, Jc.mT @ Jc)
-    bc = torch.zeros((F, 6), dtype=dt, device=dev).index_add_(
-        0, of, -torch.einsum("oki,ok->oi", Jc, rw))
+    Hpp = _index_add_(torch.zeros((P, 3, 3), dtype=dt, device=dev), op,
+                      Jp.mT @ Jp)
+    bp = _index_add_(torch.zeros((P, 3), dtype=dt, device=dev), op,
+                     -torch.einsum("oki,ok->oi", Jp, rw))
+    Hcc = _index_add_(torch.zeros((F, 6, 6), dtype=dt, device=dev), of,
+                      Jc.mT @ Jc)
+    bc = _index_add_(torch.zeros((F, 6), dtype=dt, device=dev), of,
+                     -torch.einsum("oki,ok->oi", Jc, rw))
     U = torch.zeros((F, P, 6, 3), dtype=dt, device=dev).index_put_(
         (of, op), Jc.mT @ Jp, accumulate=True)
     return Hpp, bp, Hcc, bc, U
@@ -360,8 +373,8 @@ def _graph_terms(problem: BAProblem, Hcc, bc):
     S_full.index_put_((rj, rj), Jj.mT @ Jj, accumulate=True)
     S_full.index_put_((ri, rj), Ji.mT @ Jj, accumulate=True)
     S_full.index_put_((rj, ri), Jj.mT @ Ji, accumulate=True)
-    bc = bc.index_add(0, ri, -torch.einsum("eki,ek->ei", Ji, rrw))
-    bc = bc.index_add(0, rj, -torch.einsum("eki,ek->ei", Jj, rrw))
+    bc = _index_add_(bc.clone(), ri, -torch.einsum("eki,ek->ei", Ji, rrw))
+    bc = _index_add_(bc, rj, -torch.einsum("eki,ek->ei", Jj, rrw))
     # pose priors (GPS), diagonal information weighting each residual row
     pf = problem.prior_frame
     Tg = problem.poses[pf]
@@ -372,8 +385,8 @@ def _graph_terms(problem: BAProblem, Hcc, bc):
         * fg[:, None]
     Jg = Jg * sqrt_info[:, :, None]
     rgw = rg * sqrt_info
-    Hcc = Hcc.index_add(0, pf, Jg.mT @ Jg)
-    bc = bc.index_add(0, pf, -torch.einsum("gki,gk->gi", Jg, rgw))
+    Hcc = _index_add_(Hcc.clone(), pf, Jg.mT @ Jg)
+    bc = _index_add_(bc, pf, -torch.einsum("gki,gk->gi", Jg, rgw))
     return S_full, Hcc, bc
 
 
@@ -623,8 +636,8 @@ def optimize_sim3_graph(sims, fixed, rel_i, rel_j, rel_meas, rel_weight,
         Hm.index_put_((rel_i, rel_j), Ji.mT @ Jj, accumulate=True)
         Hm.index_put_((rel_j, rel_i), Jj.mT @ Ji, accumulate=True)
         b = torch.zeros((F, 7), dtype=dt, device=dev)
-        b.index_add_(0, rel_i, -torch.einsum("eki,ek->ei", Ji, rw))
-        b.index_add_(0, rel_j, -torch.einsum("eki,ek->ei", Jj, rw))
+        _index_add_(b, rel_i, -torch.einsum("eki,ek->ei", Ji, rw))
+        _index_add_(b, rel_j, -torch.einsum("eki,ek->ei", Jj, rw))
         tr = torch.diagonal(Hm[ar, ar], dim1=-2, dim2=-1).sum(-1)
         Hm.index_put_((ar, ar), lam * eye7 * torch.clamp(
             tr / 7.0, min=1e-6)[:, None, None], accumulate=True)
@@ -689,7 +702,7 @@ def optimize_se3_graph_cg(poses, fixed, rel_i, rel_j, rel_meas, rel_weight,
 
     def scatter(vi, vj):
         out = torch.zeros((F, 6), dtype=dt, device=dev)
-        return out.index_add_(0, rel_i, vi).index_add_(0, rel_j, vj)
+        return _index_add_(_index_add_(out, rel_i, vi), rel_j, vj)
 
     p = poses
     lam = torch.full((), 1e-4, dtype=dt, device=dev)
@@ -704,7 +717,7 @@ def optimize_se3_graph_cg(poses, fixed, rel_i, rel_j, rel_meas, rel_weight,
                     -torch.einsum("eki,ek->ei", Jj, rw)) * free_all
         # the block diagonal of H (damping and preconditioner)
         D = torch.zeros((F, 6, 6), dtype=dt, device=dev)
-        D.index_add_(0, rel_i, Ji.mT @ Ji).index_add_(0, rel_j, Jj.mT @ Jj)
+        _index_add_(_index_add_(D, rel_i, Ji.mT @ Ji), rel_j, Jj.mT @ Jj)
         tr = torch.clamp(torch.diagonal(D, dim1=-2, dim2=-1).sum(-1) / 6.0,
                          min=1e-6)[:, None, None]
         damp = lam * tr * eye6 + 1e-8 * eye6

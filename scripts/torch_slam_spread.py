@@ -7,8 +7,9 @@ Run from the repository root (no GPU needed):
 On tests/test_slam.py's survey (320x240, 36 frames, its config), through
 `chip_smoke.slam_survey_run`:
 
-1. the whole run with 1, 2, 4 and 8 intra-op threads: each run's ATE
-   (Sim3-aligned to the truth) as a share of the span, and the 1-thread
+1. the whole run with 1, 2, 4 and 8 intra-op threads: each run's
+   keyframes and ATE (Sim3-aligned to the truth) as a share of the span,
+   the widest gap between the runs' keyframe counts, and the 1-thread
    run's camera centres Sim3-aligned to the 8-thread run's (RMS and
    largest, over the first row and the survey);
 2. one step (tracking, then mapping) from the 8-thread run's state at
@@ -17,11 +18,17 @@ On tests/test_slam.py's survey (320x240, 36 frames, its config), through
    the map's span;
 3. every 6th local BA window of the 8-thread run solved again with its
    points moved by 1e-6 relative noise: the largest pose and point
-   differences and the relative difference of the robust cost.
+   differences and the relative difference of the robust cost;
+4. `pipeline.fused_track_chain` over chip_smoke.SLAM_CHAIN_K frames from
+   the 8-thread run's state at each of chip_smoke.SLAM_CHAIN_FRAMES,
+   again with its aux (the last frame's map points, its pose and the
+   motion model) moved by 1e-7 relative noise, three draws: the largest
+   pose difference of each row as a share of the translation scale.
 
 These are the spreads that chip_smoke.py's phase 3 gates are set
 against (the card's floats differ from the CPU's as much as two thread
-counts' do).
+counts' do); the keyframe gap is its SLAM_CARD_KF, section 4 sets its
+SLAM_CHAIN_POSE.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ import chip_smoke as cs  # noqa: E402
 from pislamfusion_tpu_torch import convert  # noqa: E402
 from pislamfusion_tpu_torch.core.camera import Camera  # noqa: E402
 from pislamfusion_tpu_torch.models import mapper as tm  # noqa: E402
+from pislamfusion_tpu_torch.models import pipeline  # noqa: E402
 from pislamfusion_tpu_torch.models.slam import create_slam  # noqa: E402
 from pislamfusion_tpu_torch.ops import ba  # noqa: E402
 
@@ -96,11 +104,16 @@ def main() -> int:
         finally:
             tm.Mapper.solve_local_window = staticmethod(solve)
         ate, span, _ = cs.slam_ate(slam, gt)
-        runs[threads] = (poses, states, windows, frames)
+        runs[threads] = (poses, states, windows, frames,
+                         len(slam.map.keyframes()))
         print(f"{threads} threads: tracked {slam.frames_tracked}/36, "
               f"keyframes {len(slam.map.keyframes())}, ATE "
               f"{ate / span * 100:.3f} % of the span", flush=True)
-    p8, states, windows, frames = runs[8]
+    kfs = [r[4] for r in runs.values()]
+    print(f"keyframes over 1, 2, 4 and 8 threads: "
+          f"{[runs[t][4] for t in (1, 2, 4, 8)]}, widest gap "
+          f"{max(kfs) - min(kfs)}")
+    p8, states, windows, frames, _ = runs[8]
     p1 = runs[1][0]
     common = sorted(set(p1) & set(p8))
     row = cs.traj_share(p1, p8, [i for i in common if i < 12])
@@ -132,6 +145,30 @@ def main() -> int:
               f"noise, poses within {np.abs(p0 - q0).max():.3e}, points "
               f"within {np.abs(x0 - y0).max():.3e}, cost "
               f"{abs(c0 - c1) / c0:.3e} relative")
+    worst = 0.0
+    for i in cs.SLAM_CHAIN_FRAMES:
+        s = create_slam(cs.slam_survey_cfg(), Camera(*CAM), device="cpu")
+        convert.load_worldmap_state(s, states[i])
+        ins, kw = cs.slam_chain_inputs(s)
+        imgs = torch.from_numpy(cs.bench_gray(frames[i:i + cs.SLAM_CHAIN_K]))
+        feats = [pipeline.fused_extract(im, s.detector.params) for im in imgs]
+        stacked = [torch.stack([f[k] for f in feats])
+                   for k in ("desc", "valid", "xy")]
+        rows = pipeline.fused_track_chain(*stacked, *ins, **kw).numpy()
+        n = ins[0].shape[0]
+        for _ in range(3):
+            aux = ins[2] * (1.0 + 1e-7 * torch.from_numpy(
+                rng.standard_normal(ins[2].shape).astype(np.float32)))
+            moved = pipeline.fused_track_chain(*stacked, *ins[:2], aux,
+                                               *ins[3:], **kw).numpy()
+            d = [cs.rows_apart(moved[k], rows[k], n)[0]
+                 for k in range(len(rows))]
+            worst = max(worst, max(d))
+            print(f"chain of {len(rows)} from frame {i}'s state, aux with "
+                  f"1e-7 noise: rows' poses within " + ", ".join(
+                      f"{v:.2e}" for v in d) + " of the translation scale")
+    print(f"chains under 1e-7 noise: largest row pose difference "
+          f"{worst:.3e} of the translation scale")
     return 0
 
 

@@ -368,12 +368,6 @@ def test_slam_track_scale_two():
 # entry points
 # ---------------------------------------------------------------------------
 
-def test_slam_online_mode_raises():
-    cfg = chip_smoke.slam_survey_cfg(**{"SLAM.isOnline": 1})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5b"):
-        create_slam(cfg, Camera(*SLAM_CAM), device="cpu")
-
-
 def test_slam_defaults_to_cuda_and_raises_without_it():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
@@ -399,8 +393,232 @@ def test_slam_modules_and_registry_names():
     assert slam.loop_closer._gen.initial_seed() == 7
     for reg, names in ((FEATURE_DETECTORS, ("ORB", "cvORB", "liu_ORB",
                                             "liu_cvORB", "Sift")),
-                       (TRACKERS, ("opt", "demo")), (MAPPERS, ("demo",)),
+                       (TRACKERS, ("opt", "demo", "testInit",
+                                   "liu_testInit", "planar", "ransacPnP",
+                                   "testLoopDetector", "loadmap",
+                                   "rtsfmInit")),
+                       (MAPPERS, ("demo", "zhangmi")),
                        (MAPS, ("Hash",)), (LOOP_CLOSERS, ("se3graph",)),
                        (LOOP_DETECTORS, ("GPS", "distance", "BoW")),
                        (RELOCALIZERS, ("demo", "default"))):
         assert all(n in reg for n in names)
+    from pislamfusion_tpu_torch.models.worldmap import WorldMap
+    from pislamfusion_tpu_torch.core.svar import Svar
+    for name in ("opt", "demo", "testInit", "liu_testInit", "planar",
+                 "ransacPnP", "testLoopDetector", "loadmap", "rtsfmInit"):
+        assert TRACKERS.create(name, WorldMap(), Svar(), device="cpu") \
+            is not None, name
+    for name in ("demo", "zhangmi"):
+        assert MAPPERS.create(name, WorldMap(), Svar(), device="cpu") \
+            is not None, name
+
+
+# ---------------------------------------------------------------------------
+# the tracker variants and MapperZhangMi
+# ---------------------------------------------------------------------------
+
+def test_ransac_pnp_last_frame_step_matches_reference(capture, monkeypatch):
+    """TrackerRansacPnP._track_last_frame, from the JAX run's state before
+    frame 3, of a view 1 m on from the last frame (its JAX features), on
+    the JAX package's PnP samples: the same decision,
+    the pose within 1e-4 of the translation scale, inliers within 2 and
+    the bindings equal on 99 % of the keypoints."""
+    from pislamfusion_tpu_torch.models import tracker as ttr
+    from pislamfusion_tpu_torch.models.frame import Frame
+    from pislamfusion_tpu_torch.ops import ransac as tr_ransac
+    ref = capture["ransac_pnp"]
+    assert ref["ok"] and len(ref["draws"]) == 1
+    slam = create_slam(chip_smoke.slam_survey_cfg(), Camera(*SLAM_CAM),
+                       device="cpu")
+    convert.load_worldmap_state(slam, capture["before"])
+    tr = ttr.TrackerRansacPnP(slam.map, slam.cfg, device="cpu")
+    tr.last_frame = slam.tracker.last_frame
+    frame = Frame(id=SLAM_STAGE_FRAME, timestamp=float(SLAM_STAGE_FRAME),
+                  camera=tr.last_frame.camera)
+    frame.set_features({k: np.array(v) for k, v in ref["feats"].items()},
+                       tr.last_frame.desc_kind)
+    (i6, i4), = ref["draws"]
+
+    def on_the_samples(gen, p3d, p2n, valid, **kw):
+        return tr_ransac._find_pnp_from_samples(T(i6), T(i4), p3d, p2n,
+                                                valid, 0.01, 2)
+    monkeypatch.setattr(ttr.ransac, "find_pnp", on_the_samples)
+    assert tr._track_last_frame(frame)
+    scale = max(float(np.linalg.norm(ref["pose"][:3])), 1.0)
+    assert np.abs(frame.pose_c2w - ref["pose"]).max() <= 1e-4 * scale
+    assert abs(tr._n_inliers - ref["n_inliers"]) <= 2
+    assert np.mean(frame.kp2mp != ref["kp2mp"]) <= 0.01
+
+
+def test_zhangmi_filter_matches_reference():
+    """MapperZhangMi._filter_new_points (host numpy) equals the JAX
+    package's on the same frame, candidates and errors, exactly."""
+    from pislamfusion_tpu.core.camera import Camera as JCamera
+    from pislamfusion_tpu.core.svar import Svar as JSvar
+    from pislamfusion_tpu.models import mapper as jm
+    from pislamfusion_tpu.models.frame import Frame as JFrame
+    from pislamfusion_tpu.models.worldmap import WorldMap as JWorldMap
+    from pislamfusion_tpu_torch.core.svar import Svar
+    from pislamfusion_tpu_torch.models.frame import Frame
+    from pislamfusion_tpu_torch.models.worldmap import WorldMap
+    rng = np.random.default_rng(3)
+    n = 600
+    feats = {"xy": rng.uniform([0, 0], [320, 240], (n, 2)).astype(
+        np.float32), "desc": rng.integers(0, 256, (n, 32), dtype=np.uint8),
+        "valid": np.ones(n, bool)}
+    kp2mp = np.where(rng.random(n) < 0.3, rng.integers(0, 500, n), -1)
+    good = rng.random(n) < 0.5
+    err = rng.random(n).astype(np.float32)
+    out = []
+    for mk, fr_cls, cam_cls, wm, sv in (
+            (jm.MapperZhangMi, JFrame, JCamera, JWorldMap, JSvar),
+            (tmapper.MapperZhangMi, Frame, Camera, WorldMap, Svar)):
+        fr = fr_cls(id=0, timestamp=0.0, camera=cam_cls(*SLAM_CAM))
+        fr.set_features(feats, "orb")
+        fr.kp2mp = kp2mp.copy()
+        m = mk(wm(), sv()) if mk is jm.MapperZhangMi else mk(
+            wm(), sv(), device="cpu")
+        out.append([m._filter_new_points(fr, good.copy(), e)
+                    for e in (err, None)])
+    for a, b in zip(*out):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert 0 < out[1][0].sum() < good.sum()
+
+
+def _variant_strip(name, n, seed, extra=None, gps=False):
+    """tests/test_slam.py's variant runs: a strip at y 30 (or, with GPS,
+    8 frames 4 m apart at y 40 with 0.1 m fixes and the nadir attitude)
+    through the named tracker, offline."""
+    from pislamfusion_tpu_torch.core.gps import LocalFrame
+    rng = np.random.default_rng(seed)
+    ground = torch.from_numpy(chip_smoke.survey_ground(rng))
+    cam = Camera(*SLAM_CAM)
+    if gps:
+        poses = np.stack([[28.0 + 4.0 * k, 40.0, 25.0, 1.0, 0.0, 0.0, 0.0]
+                          for k in range(n)])
+    else:
+        poses = chip_smoke.survey_poses(y1=31.0, x1=25.0 + 3.0 * n)
+    cfg = chip_smoke.slam_survey_cfg(**{
+        "Tracker": name, "SLAM.nFeature": 500 if gps else 600,
+        "Plane.MinPoints": 2000, **(extra or {})})
+    slam = create_slam(cfg, cam, device="cpu")
+    from pislamfusion_tpu_torch.core.messenger import DataTrans
+    slam.trans_queue = DataTrans(30)
+    local, anchor = LocalFrame(116.35, 39.96, 40.0), None
+    for i, p in enumerate(poses):
+        img = chip_smoke.survey_view(ground, cam, p).numpy()
+        if gps:
+            noisy = p[:3] + rng.normal(0, 0.1, 3)
+            anchor = noisy if anchor is None else anchor
+            slam.track(img, float(i), gps_lla=local.local_to_lla(noisy),
+                       gps_acc=0.1, pyr=(90.0, 0.0, 0.0))
+        else:
+            slam.track(img, float(i))
+    slam.finish()
+    return slam, poses, anchor
+
+
+def test_tracker_ransacpnp_path():
+    """tests/test_slam.py:347-374: more than 70 % tracked, more than 100
+    map points, never the fused step."""
+    from pislamfusion_tpu_torch.models.tracker import TrackerRansacPnP
+    slam, _, _ = _variant_strip("ransacPnP", 12, 12)
+    assert isinstance(slam.tracker, TrackerRansacPnP)
+    assert not slam.tracker.use_fused
+    assert slam.frames_tracked > 0.7 * slam.frames_total
+    assert slam.map.point_num() > 100
+
+
+@pytest.mark.parametrize("name", ["planar", "rtsfmInit"])
+def test_tracker_geo_pair_chains(name):
+    """tests/test_slam.py:439-543 (planar, rtsfmInit): GPS-snapped pairs
+    land directly in the geo frame, every frame a keyframe, centres within
+    1.0 m (mean 0.5 m) of the truth less the first fix, more than 200
+    points; planar with at least 5 successful pairs and the ground one
+    flight height (25 m) from the cameras' plane within 1.5 m for 80 % of
+    the points; rtsfmInit never falls back and tracks 5 frames or more."""
+    from pislamfusion_tpu_torch.models.tracker import (Status,
+                                                       TrackerPlanar,
+                                                       TrackerRTSfMInit)
+    slam, poses, anchor = _variant_strip(name, 8, 5, gps=True)
+    tr = slam.tracker
+    assert slam.cfg.get_int("GPS.Fitted", 0) == 1
+    frames = slam.map.frames()
+    assert len(frames) >= (6 if name == "planar" else 5)
+    assert all(f.is_keyframe for f in frames)
+    est = np.stack([f.pose_c2w[:3] for f in frames])
+    gt = poses[np.asarray([f.id for f in frames])][:, :3] - anchor
+    err = np.linalg.norm(est - gt, axis=1)
+    assert err.max() < 1.0 and err.mean() < 0.5, err
+    assert slam.map.point_num() > 200
+    if name == "planar":
+        assert type(tr) is TrackerPlanar and len(tr._successes) >= 5
+        pz = np.stack([p.position for p in slam.map.points()])[:, 2]
+        assert np.percentile(np.abs(pz - (est[:, 2].mean() + 25.0)),
+                             80) < 1.5
+    else:
+        assert isinstance(tr, TrackerRTSfMInit)
+        assert tr.status == Status.TRACKING
+        assert slam.frames_tracked >= 5
+
+
+def test_tracker_liu_testinit_harness():
+    """tests/test_slam.py:582-607: every frame after the first is an
+    attempt, at least 60 % succeed with more than 50 mean inliers, and no
+    map is built."""
+    from pislamfusion_tpu_torch.models.tracker import TrackerInitTest
+    slam, poses, _ = _variant_strip("liu_testInit", 8, 14)
+    rep = slam.tracker.report()
+    assert isinstance(slam.tracker, TrackerInitTest)
+    assert rep["attempts"] == len(poses) - 1
+    assert rep["success"] >= 0.6 * rep["attempts"], rep
+    assert rep["mean_inliers"] > 50, rep
+    assert slam.map.point_num() == 0
+
+
+def test_tracker_loop_detector_harness():
+    """Tracker?=testLoopDetector on an 8-frame strip: no pose is
+    estimated and no point made; the first frame and those
+    whose matches to the last keyframe fall under 200 become its
+    keyframes, each inserted into the map and the detector."""
+    from pislamfusion_tpu_torch.models.tracker import TrackerLoopTest
+    slam, _, _ = _variant_strip("testLoopDetector", 8, 12,
+                                {"SLAM.nFeature": 500})
+    tr = slam.tracker
+    assert isinstance(tr, TrackerLoopTest) and not tr.use_fused
+    assert tr.n_keyframes >= 2 and slam.map.frame_num() == tr.n_keyframes
+    assert slam.map.point_num() == 0
+    assert slam.frames_tracked == slam.frames_total
+
+
+def test_tracker_loadmap(capture, tmp_path):
+    """tests/test_slam.py:413-437 on the JAX run's map after frame 3:
+    MapFile2Load (the reference's MapHash binary, io/maphash.py) is
+    loaded, track() never tracks, the map is untouched."""
+    from pislamfusion_tpu_torch.models.tracker import TrackerLoadMap
+    wmap = convert.worldmap_from_numpy(capture["after"], device="cpu")
+    ckpt = str(tmp_path / "map.maphash")
+    assert wmap.save(ckpt)
+    n_f, n_p = wmap.frame_num(), wmap.point_num()
+    cfg = chip_smoke.slam_survey_cfg(**{"Tracker": "loadmap",
+                                        "MapFile2Load": ckpt})
+    slam2 = create_slam(cfg, Camera(*SLAM_CAM), device="cpu")
+    for i in range(3):
+        slam2.track(capture["frames"][SLAM_STAGE_FRAME], float(i))
+    slam2.finish()
+    assert isinstance(slam2.tracker, TrackerLoadMap)
+    assert slam2.frames_tracked == 0
+    assert slam2.map.frame_num() == n_f and slam2.map.point_num() == n_p
+
+
+def test_mapper_zhangmi_grid_quota():
+    """tests/test_slam.py:545-580: with Mapper?=zhangmi more than 70 % of
+    the strip tracks, with fewer than 0.8x the points of the demo mapper
+    on the same frames."""
+    from pislamfusion_tpu_torch.models.mapper import MapperZhangMi
+    zm, _, _ = _variant_strip("opt", 12, 13, {"Mapper": "zhangmi"})
+    assert isinstance(zm.mapper, MapperZhangMi)
+    assert zm.frames_tracked > 0.7 * zm.frames_total
+    demo, _, _ = _variant_strip("opt", 12, 13)
+    assert 0 < zm.map.point_num() < 0.8 * demo.map.point_num(), \
+        (zm.map.point_num(), demo.map.point_num())

@@ -279,6 +279,15 @@ def slam_survey_frames(n=None):
     return frames, poses
 
 
+def _survey_view_at(pose):
+    """The survey's view [240, 320, 3] float32 (numpy) from `pose`."""
+    import chip_smoke
+    from pislamfusion_tpu_torch.core.camera import Camera
+    ground = torch.from_numpy(chip_smoke.survey_ground(
+        np.random.default_rng(11)))
+    return chip_smoke.survey_view(ground, Camera(*SLAM_CAM), pose).numpy()
+
+
 def _jax_cfg():
     from pislamfusion_tpu.core.svar import Svar
     import chip_smoke
@@ -307,7 +316,11 @@ def jax_slam_capture():
     - "close": `LoopCloserSE3Graph._close` on the after-map (frame 3 onto
       keyframe 0 with a given correction): poses and points after;
     - "gps": `Mapper.fit_gps_all` on the after-map with each keyframe's
-      true centre as its ENU fix: poses after, and the fit's rms."""
+      true centre as its ENU fix: poses after, and the fit's rms;
+    - "ransac_pnp": `TrackerRansacPnP._track_last_frame`, before frame 3,
+      of the features of a view 1 m on from the tracker's last frame: the
+      features, its result, pose, bindings and inliers, and the sample
+      indices its PnP RANSAC drew (6- and 4-point hypotheses)."""
     import tempfile
 
     import jax.numpy as jnp
@@ -371,6 +384,14 @@ def jax_slam_capture():
             feats["desc"], feats["valid"], feats["xy"], jnp.asarray(pk[:7]),
             jnp.asarray(p3d_cur), jnp.asarray(w_cur, jnp.float32), lpos,
             ldesc, lvalid, radius=8.0, chi2_th=5.991, **geo)
+        # a view 1 m on from the last frame (frame 3 is 3 m on: outside
+        # ransacPnP's window of 0.05 of the width around the last pixels)
+        near = _survey_view_at(poses[SLAM_STAGE_FRAME - 1]
+                               + np.array([1.0, 0, 0, 0, 0, 0, 0]))
+        near_feats = jp.fused_extract(jnp.asarray(near), tr.detector.params)
+        out["ransac_pnp"] = _jax_ransac_pnp_step(
+            slam, cfg, {k: np.asarray(v) for k, v in near_feats.items()},
+            SLAM_STAGE_FRAME)
         out["track"] = {
             "feats": {k: np.asarray(v) for k, v in feats.items()},
             "last_desc": np.asarray(last.desc),
@@ -435,6 +456,95 @@ def jax_slam_capture():
         out["gps"] = {"ok": ok, "rms": mp.last_gps_fit_rms, "poses": {
             f.id: np.array(f.pose_c2w) for f in m.keyframes()}}
     return out
+
+
+def _jax_ransac_pnp_step(slam, cfg, feats, fid):
+    """The JAX package's `TrackerRansacPnP._track_last_frame` of a frame
+    with the host features `feats` against `slam`'s last frame, on its map
+    (read only), recording the indices its PnP RANSAC draws."""
+    from pislamfusion_tpu.models import tracker as jt
+    from pislamfusion_tpu.models.frame import Frame
+    from pislamfusion_tpu.ops import ransac as jr
+    import jax
+    last = slam.tracker.last_frame
+    tr = jt.TrackerRansacPnP(slam.map, cfg)
+    tr.last_frame = last
+    frame = Frame(id=fid, timestamp=float(fid), camera=last.camera)
+    frame.set_features(feats, last.desc_kind)
+    draws = []
+    find_pnp = jr.find_pnp
+
+    def spy(key, p3d, p2n, valid, **kw):
+        k1, k2 = jax.random.split(key)
+        n, iters = p3d.shape[0], kw.get("iters", 256)
+        draws.append((np.asarray(jr._sample_indices(k1, n, valid,
+                                                     iters // 2, 6)),
+                      np.asarray(jr._sample_indices(k2, n, valid,
+                                                     iters - iters // 2, 4))))
+        return find_pnp(key, p3d, p2n, valid, **kw)
+
+    jr.find_pnp = spy
+    try:
+        ok = tr._track_last_frame(frame)
+    finally:
+        jr.find_pnp = find_pnp
+    return {"feats": feats, "ok": ok, "pose": np.array(frame.pose_c2w),
+            "kp2mp": np.array(frame.kp2mp), "draws": draws,
+            "n_inliers": getattr(tr, "_n_inliers", 0)}
+
+
+def chain_scene():
+    """tests/test_track_chain.py's synthetic scene (rng 0: 64 points, five
+    frames strafing in x, 64 slots a frame) as numpy: (the K=4 chain's
+    inputs, the fused_track_chain keywords)."""
+    import test_track_chain as ttc
+    rng = np.random.default_rng(0)
+    n, P, K = 64, 96, 4
+    pts, desc, poses = ttc._make_scene(rng)
+    feats = []
+    for pose in poses:
+        f, _ = ttc._frame_feats(rng, pts, desc, pose, n)
+        feats.append({k: np.asarray(v) for k, v in f.items()})
+    lpos = np.zeros((P, 3), np.float32)
+    lpos[:len(pts)] = pts
+    ldesc = np.zeros((P, 32), np.uint8)
+    ldesc[:len(pts)] = desc
+    lvalid = np.zeros(P, bool)
+    lvalid[:len(pts)] = True
+    f0, slot_of = ttc._frame_feats(rng, pts, desc, poses[0], n)
+    prev_p3d = np.zeros((n, 3), np.float32)
+    prev_has = np.zeros(n, bool)
+    for i, s in enumerate(slot_of):
+        if s >= 0:
+            prev_p3d[s] = pts[i]
+            prev_has[s] = True
+    aux = np.concatenate([prev_p3d.reshape(-1), prev_has.astype(np.float32),
+                          poses[0], np.array([0, 0, 0, 0, 0, 0, 1.0])]
+                         ).astype(np.float32)
+    inputs = {"desc_k": np.stack([feats[k]["desc"] for k in range(1, K + 1)]),
+              "valid_k": np.stack([feats[k]["valid"]
+                                   for k in range(1, K + 1)]),
+              "xy_k": np.stack([feats[k]["xy"] for k in range(1, K + 1)]),
+              "prev_desc": np.asarray(f0["desc"]),
+              "prev_valid": np.asarray(f0["valid"]), "aux": aux,
+              "local_pos": lpos, "local_desc": ldesc, "local_valid": lvalid}
+    kw = dict(fx=ttc.FX, fy=ttc.FY, cx=ttc.CX, cy=ttc.CY, width=ttc.W,
+              height=ttc.H, radius=ttc.RADIUS, radius_local=ttc.R_LOCAL,
+              chi2_th=ttc.CHI2)
+    return inputs, kw, np.stack(poses)
+
+
+def jax_chain_capture():
+    """The JAX package's `fused_track_chain` (jitted, on this thread) on
+    `chain_scene`'s inputs: (inputs, keywords, poses, rows [K, ...])."""
+    import jax.numpy as jnp
+    from pislamfusion_tpu.models import pipeline as jp
+    inputs, kw, poses = chain_scene()
+    rows = jp.fused_track_chain(
+        *[jnp.asarray(inputs[k]) for k in (
+            "desc_k", "valid_k", "xy_k", "prev_desc", "prev_valid", "aux",
+            "local_pos", "local_desc", "local_valid")], **kw)
+    return inputs, kw, poses, np.asarray(rows)
 
 
 def _main(argv):
