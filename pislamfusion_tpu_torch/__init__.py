@@ -14,8 +14,9 @@ ORB and the SIFT detector, the Map2D orthomosaic engines
 base (the camera models, the host modules of `core/`, `utils/`, `io/`,
 and the solvers), SLAM itself in its offline configuration
 (`models/slam.py`) and the fused system: the fusion consumer
-(`models/fusion.py`), the exporters, tiles and viz, and the binary
-`python -m pislamfusion_tpu_torch` (`app.py`).
+(`models/fusion.py`), the exporters, tiles and viz, the binary
+`python -m pislamfusion_tpu_torch` (`app.py`), and the scale-out layer
+over a mesh of devices in one process (`parallel/`).
 """
 from .core.camera import Camera
 from .core.device import resolve_device

@@ -13,10 +13,9 @@ own thread), `Survey` (FastVO's batch track+fuse), `TestMap2D`
 runs on one device: the `device` argument of each function, on the
 command line the `Device` key (default `cuda`; an error without a CUDA
 device, never a silent CPU run; `Device=cpu` runs the plain PyTorch
-versions of the kernels). `Survey` runs on one device: with
-`Survey.Mesh` asking for more than one where more than one exists it
-raises (the segment-parallel engine, `parallel.dist_vo`, is not ported
-yet).
+versions of the kernels). `Survey` runs segment-parallel over a mesh
+of devices (`Survey.Mesh`, `parallel.dist_vo`) where it has more than
+one, else serially on the one device.
 """
 from __future__ import annotations
 
@@ -224,10 +223,13 @@ def run_slam(cfg: Svar, dataset_paths: List[str], out_dir: str = ".",
 def run_survey(cfg: Svar, dataset_paths: List[str], out_dir: str = ".",
                device=None):
     """Act=Survey: dataset -> batched FastVO on `device` (None means
-    `cuda`) -> result.png + trajectory.txt + optional geo-tiles. The
-    reference's segment-parallel dist_vo engine (multi-device) is not
-    ported: `Survey.Mesh` asking for more than one device where more than
-    one exists raises NotImplementedError.
+    `cuda`) -> result.png + trajectory.txt + optional geo-tiles. With a
+    mesh of more than one device (`Survey.Mesh`: on CUDA the first that
+    many cards, all by default, where there are several; on the CPU that
+    many shards of it, one by default) the survey runs segment-parallel
+    (`parallel.dist_vo.process_survey`: segments of Survey.SegLen frames
+    overlapping by one, anchored and drift-corrected by GPS where the
+    dataset has it) and the trajectory is re-assembled from the segments.
 
     The batch survey mode the reference's architecture cannot express
     (its closest role: Map2DFusion.cpp:153-248 TestMap2D playback, which
@@ -235,17 +237,11 @@ def run_survey(cfg: Svar, dataset_paths: List[str], out_dir: str = ".",
     fixes anchor the plane frame.
 
     Knobs: Survey.MaxFrames?=0 (all), Survey.Height?=0 (m above ground
-    when frames carry no height), Survey.Mesh?=0 (0 = all devices),
+    when frames carry no height), Survey.Mesh?=0 (0 = all cards, one
+    shard on the CPU), Survey.SegLen?=max(4, ceil(frames / mesh) + 1),
     Survey.NFeature?=1000, Map2D.Scale?=0.5.
     """
     dev = resolve_device(device)
-    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
-    mesh_n = cfg.get_int("Survey.Mesh", 0) or n_dev
-    if mesh_n > 1 and n_dev > 1:
-        raise NotImplementedError(
-            f"Survey.Mesh asks for {mesh_n} of {n_dev} CUDA devices: the "
-            "segment-parallel survey (parallel.dist_vo) is ROADMAP item 8 "
-            "and not ported yet; pass Survey.Mesh=1")
     if not dataset_paths:
         raise SystemExit("no dataset given (pass e.g. survey.npudronemap)")
     ds = open_dataset(dataset_paths[0])
@@ -344,7 +340,39 @@ def run_survey(cfg: Svar, dataset_paths: List[str], out_dir: str = ".",
         return np.concatenate([t, np.asarray(q, np.float64)]).astype(
             np.float32)
 
-    est, n_match = vo.process(frames, anchor_pose(0))
+    # the segment-parallel engine over a mesh: the first Survey.Mesh
+    # cards on CUDA (all by default); on the CPU Survey.Mesh shards of it
+    # (the reference's test mesh), one by default
+    if dev.type == "cuda":
+        n_dev = torch.cuda.device_count()
+        mesh_n = cfg.get_int("Survey.Mesh", 0) or n_dev
+        mesh_devs = [torch.device("cuda", i)
+                     for i in range(min(mesh_n, n_dev))]
+    else:
+        n_dev = mesh_n = cfg.get_int("Survey.Mesh", 0) or 1
+        mesh_devs = [dev] * mesh_n
+    if mesh_n > 1 and n_dev > 1:
+        from .parallel import make_mesh, dist_vo
+        seg_len = cfg.get_int("Survey.SegLen",
+                              max(4, -(-len(raws) // mesh_n) + 1))
+        segs, firsts = dist_vo.segments_from_frames(frames, seg_len,
+                                                    overlap=1)
+        anchors = np.stack([anchor_pose(s) for s in firsts])
+        mesh = make_mesh(mesh_devs)
+        kw = dict(correct_drift=True, anchor_stride=seg_len - 1) \
+            if have_gps else {}
+        print(f"{segs.shape[0]} segments x {seg_len} over "
+              f"{mesh.devices.size} devices"
+              + (", drift-corrected" if kw else ""))
+        est_s, nm = dist_vo.process_survey(vo, segs, anchors, mesh, **kw)
+        est = np.zeros((len(raws), 7), np.float32)
+        n_match = np.zeros(len(raws), np.int64)
+        for i, s in enumerate(firsts):
+            take = min(seg_len, len(raws) - s)
+            est[s:s + take] = est_s[i][:take]
+            n_match[s:s + take] = nm[i][:take]
+    else:
+        est, n_match = vo.process(frames, anchor_pose(0))
     dt = time.perf_counter() - t0
     tracked = int((np.asarray(n_match)[1:] > 10).sum()) + 1
     print(f"tracked {tracked}/{len(raws)} frames in {dt:.1f}s "

@@ -106,6 +106,7 @@ class FastVO(torch.nn.Module):
         # the stream and stall the frame loop
         self._min_xy = torch.tensor(self.min_xy, dtype=torch.float32,
                                     device=self.device)
+        self._min_xy_at = {}
         lap, w = M.alloc_canvas(self.canvas_tiles, self.canvas_tiles,
                                 self.bands, self.device)
         for i, (a, b) in enumerate(zip(lap, w)):
@@ -143,7 +144,7 @@ class FastVO(torch.nn.Module):
         (x, y), patch px -> image px homography [3, 3])."""
         cam = self.cam
         es = ELE * self.length_pixel
-        min_xy = self._min_xy
+        min_xy = self._min_xy_on(pose_c2w.device)
         origin_t = torch.floor((pose_c2w[:2] - min_xy) / es).to(torch.int32)
         origin_t = origin_t - self.patch_tiles // 2
         origin_t = origin_t.clamp(0, self.canvas_tiles - self.patch_tiles)
@@ -152,9 +153,19 @@ class FastVO(torch.nn.Module):
             pose_c2w, cam.fx, cam.fy, cam.cx, cam.cy, origin_xy,
             self.length_pixel)
 
-    def _feed(self, pose_c2w, rgb):
+    def _min_xy_on(self, device):
+        """min_xy as a tensor on `device` (uploaded once a device)."""
+        if device == self._min_xy.device:
+            return self._min_xy
+        t = self._min_xy_at.get(device)
+        if t is None:
+            t = self._min_xy_at[device] = self._min_xy.to(device)
+        return t
+
+    def _feed(self, pose_c2w, rgb, canvas=None):
         """Warp + pyramid + max-weight composite of one frame into the
-        canvas (in place)."""
+        canvas (in place): `canvas` = (lap bands, weight bands), on the
+        pose's device; None means this FastVO's own."""
         origin_t, Hc2i = self._patch_homography(pose_c2w)
         patch_px = self.patch_tiles * ELE
         rgb3 = rgb if rgb.ndim == 3 else rgb[..., None].expand(-1, -1, 3)
@@ -162,7 +173,9 @@ class FastVO(torch.nn.Module):
                                       self.bands, half_res=self.fast_warp,
                                       warp=self.warp_mode)
         oyx = torch.stack([origin_t[1], origin_t[0]]) * ELE
-        M.composite_patch(self.canvas_lap, self.canvas_w, p_lap, p_w, oyx)
+        lap, w = (self.canvas_lap, self.canvas_w) if canvas is None \
+            else canvas
+        M.composite_patch(lap, w, p_lap, p_w, oyx)
 
     def _track_core(self, carry, feats):
         """Match + pose LM given the frame's features. carry = (prev_desc,
@@ -196,14 +209,15 @@ class FastVO(torch.nn.Module):
         gray = im.rgb_to_gray(rgb) if rgb.ndim == 3 else rgb
         return pipeline._detect(gray, self.params, self.pyramid, mark)
 
-    def _step(self, carry, rgb, mark=None):
-        """One frame: extract + match + pose LM + mosaic feed. `mark`, when
-        given, is called with each stage's name as that stage is enqueued
-        (chip_smoke.py records a CUDA event there to time the stages)."""
+    def _step(self, carry, rgb, mark=None, canvas=None):
+        """One frame: extract + match + pose LM + mosaic feed (into
+        `canvas`, see `_feed`). `mark`, when given, is called with each
+        stage's name as that stage is enqueued (chip_smoke.py records a
+        CUDA event there to time the stages)."""
         carry, (pose_new, n_match) = self._track_core(
             carry, self._detect(rgb, mark))
         pipeline._mark(mark, "match_lm")
-        self._feed(pose_new, rgb.to(torch.float32))
+        self._feed(pose_new, rgb.to(torch.float32), canvas)
         pipeline._mark(mark, "feed")
         return carry, (pose_new, n_match)
 

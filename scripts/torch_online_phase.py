@@ -8,7 +8,7 @@ Run from the repository root on the card's machine:
 It builds the port's kernels, renders the first 24 frames of bench.py's
 1080p strip, then runs phase 2f (bench.py's SLAM pass on the port:
 ORB-1000 online over 47 frames out and back in the four (TrackChain,
-TrackScale) configurations, two interleaved rounds; SIFT-1000 chained
+TrackScale) configurations, one round each; SIFT-1000 chained
 over frames 0-17; the synchronising calls of one chain; and, unless
 --no-app, `app.main(["Act=SLAM", ...])` online with TrackChain 8 over
 phase 2e's two-row dataset), with chip_smoke.py's lines and gates.

@@ -19,8 +19,8 @@ test_cli.py's bars, not to a JAX run:
   one trajectory row a frame, tiles, ATE under 2.0 m, a covered mosaic;
 - `Act=TestMap2D` plays a trajectory folder back;
 - without `Device` every Act that computes raises on a machine without
-  CUDA, and `Survey.Mesh` asking for several cards raises
-  NotImplementedError.
+  CUDA, and with several cards `Survey.Mesh` builds the segment-parallel
+  survey's mesh of them.
 """
 import os
 import threading
@@ -148,14 +148,43 @@ def test_main_without_device_needs_cuda(act, dataset, monkeypatch):
         app.main([f"Act={act}", dataset[0]], cfg=Svar())
 
 
-def test_survey_mesh_over_several_cards_raises(dataset, monkeypatch):
-    """The segment-parallel survey (ROADMAP item 8) is not ported: asking
-    for it raises instead of running on one card."""
+def test_survey_mesh_builds_a_mesh_of_cards(dataset, monkeypatch):
+    """With four CUDA devices, `Survey.Mesh` 0 (all) and 4 run the
+    segment-parallel survey over cuda:0-3, 2 over cuda:0-1, and 1 the
+    serial FastVO (the cards are faked: FastVO and process_survey are
+    stand-ins that record what run_survey hands them)."""
+    from pislamfusion_tpu_torch.models import fastvo
+    from pislamfusion_tpu_torch.parallel import dist_vo
+
+    class Stop(Exception):
+        pass
+
+    class FakeVO:
+        def __init__(self, *args, device=None, **kwargs):
+            self.device = device
+
+        def process(self, frames, pose0):
+            raise Stop("serial")
+
+    meshes = []
+
+    def fake_survey(vo, segs, anchors, mesh, **kw):
+        meshes.append((mesh, kw))
+        raise Stop("mesh")
+
     monkeypatch.setattr(app, "resolve_device",
                         lambda device=None: torch.device("cuda"))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    for mesh in ("0", "2"):
+    monkeypatch.setattr(fastvo, "FastVO", FakeVO)
+    monkeypatch.setattr(dist_vo, "process_survey", fake_survey)
+    for n, want in (("0", 4), ("4", 4), ("2", 2), ("1", 0)):
         cfg = Svar()
-        cfg.set("Survey.Mesh", mesh)
-        with pytest.raises(NotImplementedError, match="item 8"):
+        cfg.set("Survey.Mesh", n)
+        with pytest.raises(Stop, match="mesh" if want else "serial"):
             app.run_survey(cfg, [dataset[0]])
+        if want:
+            mesh, kw = meshes.pop()
+            assert mesh.devices.size == want
+            assert [str(d) for d in mesh.flat] == [
+                f"cuda:{i}" for i in range(want)]
+            assert kw["correct_drift"]     # the dataset has GPS

@@ -304,7 +304,9 @@ GEOMETRY_MODULES = (
     "models.tracker", "models.mapper", "models.loopclose", "models.slam",
     "ops.vocabulary", "io.maphash", "resources.orb_vocab",
     "resources.sift_vocab", "core.memory_metric", "io.tiles",
-    "io.exporters", "models.fusion", "viz", "app", "__main__")
+    "io.exporters", "models.fusion", "viz", "app", "__main__",
+    "parallel.mesh", "parallel.batch", "parallel.dist_ba",
+    "parallel.dist_ransac", "parallel.dist_mosaic", "parallel.dist_vo")
 
 
 def test_port_imports_neither_jax_nor_the_reference():

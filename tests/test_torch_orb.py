@@ -97,3 +97,44 @@ def test_angle_blur_and_brief(gray):
     np.testing.assert_array_equal(
         torb.pack_bits(torch.from_numpy(bits_t)).numpy(),
         np.asarray(jax.jit(jorb.pack_bits)(jnp.asarray(bits_j))))
+
+
+def test_brief_continuous_angle_bit_equal():
+    """angle_bins=0 (each keypoint's pattern rotated by its own angle, the
+    reference's round-rotated tap formula in f32): the same bits as the
+    reference's on the same blurred patches and angles, over 3000 random
+    angles and patches of coarse values (many equal taps)."""
+    rng = np.random.default_rng(31)
+    n, G = 3000, jorb._GATHER
+    ang = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
+    ang[:64] = np.linspace(-np.pi, np.pi, 64, dtype=np.float32)
+    brief = jax.jit(jorb.brief_descriptors, static_argnums=2)
+    for pat in (rng.uniform(0, 255, (n, G, G)).astype(np.float32),
+                np.round(rng.uniform(0, 8, (n, G, G))).astype(np.float32)):
+        bits_j = np.asarray(brief(jnp.asarray(pat), jnp.asarray(ang), 0))
+        bits_t = torb.brief_descriptors(torch.from_numpy(pat),
+                                        torch.from_numpy(ang), 0).numpy()
+        np.testing.assert_array_equal(bits_t, bits_j)
+
+
+def test_orb_detect_continuous_angle_matches_reference(gray,
+                                                       monkeypatch):
+    """orb_detect with OrbParams(angle_bins=0) against the reference's on
+    its TPU path (K1, K2 in interpret mode) on the same frame, at the
+    port's ORB bars (test_torch_fastvo.py): >= 98 % of the valid
+    keypoints with the same (xy, octave), >= 99.9 % of their descriptor
+    bits equal."""
+    from test_torch_fastvo import _assert_features_match
+    from torch_port_reference import forced_tpu_path
+    with forced_tpu_path(monkeypatch):
+        ref = {k: np.asarray(v) for k, v in jorb.orb_detect(
+            jnp.asarray(gray), jorb.OrbParams(angle_bins=0,
+                                              **PARAMS)).items()}
+    got = {k: v.numpy() for k, v in torb.orb_detect(
+        torch.from_numpy(gray), torb.OrbParams(angle_bins=0,
+                                               **PARAMS)).items()}
+    _assert_features_match(ref, got)
+    binned = torb.orb_detect(torch.from_numpy(gray),
+                             torb.OrbParams(**PARAMS))
+    # the continuous pattern is another descriptor than the binned one
+    assert (binned["desc"].numpy() != got["desc"]).mean() > 0.01
