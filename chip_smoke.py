@@ -113,12 +113,12 @@ It builds the port's CUDA kernels from `pislamfusion_tpu_torch/csrc/`
 2e. drives the fused system (`python -m pislamfusion_tpu_torch`) through
    `app.main` on a two-row 1080p lawnmower survey written as a
    `.npudronemap` dataset (fx 1200, 120 m up, 4 m a frame, rows 40 m
-   apart, a GPS fix a frame with 0.4 m of noise): `Act=SLAM` twice (SLAM
+   apart, a GPS fix a frame with 0.4 m of noise): `Act=SLAM` once (SLAM
    in the caller's thread with GPS fitting and loop closing, the
    FusionSystem consumer in its own thread into Map2D Type 3 with K3 and
-   K8, and the exporters), each with every launch count set to 0 just
-   before and read just after, `Act=TestMap2D` over the first run's
-   exported Map2DFusion folder, then `Act=Survey` (FastVO); it prints ms a
+   K8, and the exporters), with every launch count set to 0 just
+   before and read just after, `Act=TestMap2D` over its exported
+   Map2DFusion folder, then `Act=Survey` (FastVO); it prints ms a
    frame, the timer scopes, peak device memory, the queue's drops and the
    launches, and gates on tests/test_cli.py's bars (tracked, GPS fit, geo
    ATE, frames fed and refreshed, mosaic PSNR against the texture, every
@@ -138,9 +138,22 @@ It builds the port's CUDA kernels from `pislamfusion_tpu_torch/csrc/`
    FusionSystem on tests/test_refresh.py's three cases and the geo tiles
    of its rebased canvas; `orb_detect` with the continuous-angle BRIEF
    (OrbParams(angle_bins=0)) and `dist_vo.process_survey` over 4 shards
-   (3 segments of the small strip) card against CPU; and prints the
-   kernel table (each kernel's launches on its path and over phase 2g)
-   and the result line.
+   (3 segments of the small strip) card against CPU;
+2h. then drives the JAX package's end-to-end SLAM suites on the port
+   (`scripts/torch_e2e_scenes.py`, E2E_CASES), each at its reference
+   test's scene, frames, configuration and bars through `create_slam(cfg,
+   cam, device="cuda")`: tests/test_soak.py:27 (80 frames, everything on,
+   with the FusionSystem feed) and tests/test_parallax.py:132 and :219
+   (the parallax scene; blur and noise); each with every launch count set
+   to 0 before it and read after it; it prints each case's ms a frame,
+   tracked, ATE, loops closed, geo ATE, points and keyframes, every bar
+   beside its value and the card, and gates on every bar, K2 launched
+   over the phase (at these frame sizes ORB takes neither K1 nor K4, as
+   in the JAX package) and K3 and K8 on the soak's feed. Loop closing,
+   GPS fusion, the real-texture circuit, the race hunt and the real
+   sequence run in `scripts/torch_e2e_phase.py` alone, by their time;
+and prints the kernel table (each kernel's launches on its path and over
+phases 2g and 2h) and the result line.
 
 Every failure raises and ends the script with a nonzero exit code. With no
 CUDA device it exits nonzero before printing any result.
@@ -1206,6 +1219,22 @@ def profile_frames(run, k: int):
         f"{n} {us / 1e3 / k:.4f}" for n, us in ours.items() if us))
 
 
+def kernel_wrappers():
+    """{kernel: the wrapper that launches it and counts its launches}."""
+    from pislamfusion_tpu_torch.ops import shearwarp as sw
+    from pislamfusion_tpu_torch.ops import stencil
+    from pislamfusion_tpu_torch.ops.features import (fastselect, flatpyr,
+                                                     packedpyr)
+    from pislamfusion_tpu_torch.ops.features import patchgather as pg
+    return {"flatpyr": flatpyr.build_flat_pyramid,
+            "patchgather": pg.gather_patches, "shearwarp": sw.warp_patch,
+            "fastselect": fastselect.fast_cell_winners,
+            "bandedstack": stencil.banded_stack,
+            "bilineargrid": pg.bilinear_grid,
+            "packedpyr": packedpyr.build_packed_pyramid,
+            "bandedsandwich": stencil.banded_sandwich}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1236,6 +1265,12 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} "
           f"x{torch.cuda.device_count()}")
+
+    t_run = time.perf_counter()
+
+    def lap(phases):
+        print(f"chip_smoke: {phases} done {time.perf_counter() - t_run:.1f}"
+              " s into the run", flush=True)
 
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -1343,13 +1378,7 @@ def main() -> int:
     ], flush)
     del m2d, patch, w0, lap1, fv_patch, w_half, flush
     rows = [k1, k2, k3, k4, k5, k6, k7, k8]
-    wrappers = {"flatpyr": flatpyr.build_flat_pyramid,
-                "patchgather": pg.gather_patches, "shearwarp": sw.warp_patch,
-                "fastselect": fastselect.fast_cell_winners,
-                "bandedstack": stencil.banded_stack,
-                "bilineargrid": pg.bilinear_grid,
-                "packedpyr": packedpyr.build_packed_pyramid,
-                "bandedsandwich": stencil.banded_sandwich}
+    wrappers = kernel_wrappers()
 
     # ---- phase 2: the main paths, through FastVO.process
     orb_launches = run_main_path(
@@ -1381,6 +1410,7 @@ def main() -> int:
     # ---- phase 2c: SLAM's solvers at full width, from orb_detect (K1, K4,
     # K2) through the initializers, PnP, BA and multih
     chain = run_solver_phase(frames, poses, fx, wrappers)[3]
+    lap("phases 1, 2, 2b and 2c")
     del frames
     frames_s, poses_s = render_strip(36, H, W, fx, 0.12, 6144, dev)
     # ---- phase 2g: scale-out over 4 shards of the card: process_survey
@@ -1399,15 +1429,24 @@ def main() -> int:
                    ("bandedstack", "bilineargrid"))
     # ---- phase 2f: online SLAM (bench.py's SLAM pass): ORB-1000 over 47
     # frames out and back in the four (TrackChain, TrackScale)
-    # configurations, twice, then SIFT-1000 chained
+    # configurations, once each, then SIFT-1000 chained
     run_online_phase(frames_s, poses_s, fx, dev, wrappers, card)
     del frames_s
-    # ---- phase 2e: the fused system through app.main: Act=SLAM (SLAM
-    # with the fusion consumer thread and the exporters) twice, then
-    # Act=Survey, on a two-row 1080p survey with GPS; then phase 2f's
-    # online Act=SLAM call over the same dataset
+    lap("phases 2g, 2d and 2f")
+    # ---- phase 2e: the fused system through app.main: Act=SLAM (SLAM with
+    # the fusion consumer thread and the exporters), then Act=Survey, on a
+    # two-row 1080p survey with GPS; then phase 2f's online Act=SLAM call
+    # over the same dataset
     run_fused_phase(dev, wrappers, card, then=lambda ds, p, root:
                     run_online_app(ds, p, root, wrappers, card))
+    lap("phase 2e and phase 2f's Act=SLAM")
+    # ---- phase 3: the card against the port's CPU runs
+    run_phase3(dev)
+    lap("phase 3")
+    # ---- phase 2h: the JAX package's end-to-end SLAM suites (the soak,
+    # parallax, blur and noise) at their own scenes and bars
+    e2e_launches = run_e2e_phase(dev, wrappers, card)
+    lap("phase 2h")
     for row in rows:
         # each kernel's count from the path it was ported for
         path = (orb_launches if row["name"] in (
@@ -1419,8 +1458,19 @@ def main() -> int:
         # and over phase 2g (the mesh of 4 shards: surveys, mosaic, BA,
         # PnP and the batched detectors)
         row["launches_2g"] = scaleout_launches[row["name"]]
+        # and over phase 2h (the end-to-end SLAM cases)
+        row["launches_2h"] = e2e_launches[row["name"]]
 
-    # ---- phase 3: the card against the port's CPU run on a small strip
+    print(card)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_phase3(dev):
+    """Phase 3: the card against the port's CPU runs."""
     card_vs_cpu("orb", dev)
     card_vs_cpu("orb", dev, pyramid="packed")
     card_vs_cpu("sift", dev)
@@ -1430,13 +1480,6 @@ def main() -> int:
     solver_card_vs_cpu(dev)
     slam_card_vs_cpu(dev)
     fusion_card_vs_cpu(dev)
-
-    print(card)
-    print(json.dumps({"kernels": rows}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
 
 
 def run_main_path(label, make, frames, poses, wrappers, path_kernels,
@@ -2276,14 +2319,13 @@ def fused_playback(out):
 
 
 def run_fused_phase(dev, wrappers, card, then=None):
-    """Phase 2e: the fused system on the two-row 1080p dataset, twice
-    through `app.main(["Act=SLAM", ...])` (SLAM on the caller's thread,
-    the FusionSystem consumer in its own, Map2D Type 3 with K3 and K8),
+    """Phase 2e: the fused system on the two-row 1080p dataset, through
+    `app.main(["Act=SLAM", ...])` once (SLAM on the caller's thread, the
+    FusionSystem consumer in its own, Map2D Type 3 with K3 and K8),
     then `Act=Survey` (FastVO). Prints ms a frame, the timer scopes, peak
     device memory, the queue's drops and the launches; gates on
     tests/test_cli.py's bars. Then `then(dataset path, true poses, work
-    directory)`, when given, before the dataset is removed. Returns
-    {kernel: launches} of the first Act=SLAM run."""
+    directory)`, when given, before the dataset is removed."""
     import shutil
     import tempfile
     import torch
@@ -2307,79 +2349,69 @@ def run_fused_phase(dev, wrappers, card, then=None):
               f"{time.perf_counter() - t0:.1f} s; native image IO "
               f"{native_io.available()}; Plane.MinPoints "
               f"{FUSED_PLANE_MIN_POINTS}")
-        first = None
-        walls = []
-        for call in range(2):
-            slam = fusion = None          # free the last call's state
-            out = os.path.join(root, f"slam{call}")
-            slam, fusion, wall, launches, stats, mem = run_fused_slam(
-                ds, out, wrappers)
-            walls.append(wall * 1e3 / K)
-            first = first or launches
-            tracked = slam.frames_tracked / max(slam.frames_total, 1)
-            frames = [f for f in slam.map.frames()
-                      if f.n_tracked() > 0 or f.is_keyframe]
-            est = np.stack([f.pose_c2w[:3] for f in frames])
-            ids = np.asarray([int(round(f.timestamp)) for f in frames])
-            ate = geo_ate(est, poses[ids][:, :3])
-            S = ransac.sim3_horn(
-                torch.from_numpy(poses[ids][:, :3].astype(np.float32)),
-                torch.from_numpy(est.astype(np.float32)))
-            psnr, cover = mosaic_psnr_vs_truth(
-                fusion.map2d, tex.astype(np.float32), S.numpy(),
-                ground_scale=FUSED_GS) if fusion.map2d is not None \
-                else (0.0, 0.0)
-            dropped = fusion.dropped_before_prepare
-            total_drop = slam.trans_queue.dropped
-            tiles = [f for _, _, fs in os.walk(os.path.join(out, "tiles"))
-                     for f in fs if f.endswith(".png")]
-            missing = [f for f in ("result.png", "trajectory.txt",
-                                   "map.ply", "m2df/config.cfg", "map.mf")
-                       if not os.path.isfile(os.path.join(out, f))]
-            peak, held = mem.get("cuda:0", (0, 0))
-            print(f"fused (phase 2e) Act=SLAM call {call + 1}: "
-                  f"{wall * 1e3 / K:.1f} ms a frame (host clock, the whole "
-                  f"Act); tracked {slam.frames_tracked}/{slam.frames_total}"
-                  f", keyframes {len(slam.map.keyframes())}, map points "
-                  f"{slam.map.point_num()}, GPS fitted "
-                  f"{slam.mapper.gps_fitted}, geo ATE {ate:.3f} m; mosaic "
-                  f"fed {fusion.frames_fed}, refreshed "
-                  f"{fusion.frames_refreshed}, queue dropped {dropped} "
-                  f"before the plane ({total_drop} in all), PSNR "
-                  f"{psnr:.2f} dB over {cover:.3f} of the ground, "
-                  f"{len(tiles)} tiles; consumer alive {fusion.alive()}, "
-                  f"error {fusion.error is not None}; peak device memory "
-                  f"{peak / 2 ** 20:.1f} MiB above the {held / 2 ** 20:.1f} "
-                  f"MiB held before the call ({card})")
-            print(f"fused (phase 2e) call {call + 1} timer scopes, total ms "
-                  "(calls): " + ", ".join(
-                      f"{k} {stats.get(k, {}).get('total', 0.0) * 1e3:.1f} "
-                      f"({stats.get(k, {}).get('count', 0)})"
-                      for k in FUSED_SCOPES))
-            print(f"fused (phase 2e) call {call + 1} launches: " + ", ".join(
-                f"{k} {launches[k]}" for k in FUSED_KERNELS))
-            fed_min = FUSED_MIN_FED * slam.frames_tracked - dropped
-            if not (tracked >= FUSED_MIN_TRACKED and slam.mapper.gps_fitted
-                    and ate < FUSED_MAX_ATE and fusion.error is None
-                    and not fusion.alive()
-                    and fusion.frames_fed >= fed_min
-                    and fusion.frames_refreshed > 0
-                    and psnr >= FUSED_MIN_PSNR and cover > FUSED_MIN_COVER
-                    and not missing and tiles
-                    and min(launches[k] for k in FUSED_KERNELS) >= 1):
-                raise AssertionError(
-                    f"phase 2e Act=SLAM: gates failed (tracked {tracked:.3f}"
-                    f", GPS fitted {slam.mapper.gps_fitted}, ATE {ate:.3f}, "
-                    f"fed {fusion.frames_fed} < {fed_min:.1f}?, refreshed "
-                    f"{fusion.frames_refreshed}, PSNR {psnr:.2f} over "
-                    f"{cover:.3f}, missing {missing}, tiles {len(tiles)}, "
-                    f"alive {fusion.alive()}, launches {launches}, error "
-                    f"{fusion.error})")
-            if call == 0:
-                fused_playback(out)
-        print(f"fused (phase 2e) Act=SLAM ms a frame over {len(walls)} "
-              f"calls: {', '.join(f'{w:.1f}' for w in walls)} (spread "
-              f"{max(walls) / min(walls):.3f}x)")
+        out = os.path.join(root, "slam")
+        slam, fusion, wall, launches, stats, mem = run_fused_slam(
+            ds, out, wrappers)
+        tracked = slam.frames_tracked / max(slam.frames_total, 1)
+        frames = [f for f in slam.map.frames()
+                  if f.n_tracked() > 0 or f.is_keyframe]
+        est = np.stack([f.pose_c2w[:3] for f in frames])
+        ids = np.asarray([int(round(f.timestamp)) for f in frames])
+        ate = geo_ate(est, poses[ids][:, :3])
+        S = ransac.sim3_horn(
+            torch.from_numpy(poses[ids][:, :3].astype(np.float32)),
+            torch.from_numpy(est.astype(np.float32)))
+        psnr, cover = mosaic_psnr_vs_truth(
+            fusion.map2d, tex.astype(np.float32), S.numpy(),
+            ground_scale=FUSED_GS) if fusion.map2d is not None \
+            else (0.0, 0.0)
+        dropped = fusion.dropped_before_prepare
+        total_drop = slam.trans_queue.dropped
+        tiles = [f for _, _, fs in os.walk(os.path.join(out, "tiles"))
+                 for f in fs if f.endswith(".png")]
+        missing = [f for f in ("result.png", "trajectory.txt",
+                               "map.ply", "m2df/config.cfg", "map.mf")
+                   if not os.path.isfile(os.path.join(out, f))]
+        peak, held = mem.get("cuda:0", (0, 0))
+        print(f"fused (phase 2e) Act=SLAM: "
+              f"{wall * 1e3 / K:.1f} ms a frame (host clock, the whole "
+              f"Act); tracked {slam.frames_tracked}/{slam.frames_total}"
+              f", keyframes {len(slam.map.keyframes())}, map points "
+              f"{slam.map.point_num()}, GPS fitted "
+              f"{slam.mapper.gps_fitted}, geo ATE {ate:.3f} m; mosaic "
+              f"fed {fusion.frames_fed}, refreshed "
+              f"{fusion.frames_refreshed}, queue dropped {dropped} "
+              f"before the plane ({total_drop} in all), PSNR "
+              f"{psnr:.2f} dB over {cover:.3f} of the ground, "
+              f"{len(tiles)} tiles; consumer alive {fusion.alive()}, "
+              f"error {fusion.error is not None}; peak device memory "
+              f"{peak / 2 ** 20:.1f} MiB above the {held / 2 ** 20:.1f} "
+              f"MiB held before the call ({card})")
+        print("fused (phase 2e) Act=SLAM timer scopes, total ms "
+              "(calls): " + ", ".join(
+                  f"{k} {stats.get(k, {}).get('total', 0.0) * 1e3:.1f} "
+                  f"({stats.get(k, {}).get('count', 0)})"
+                  for k in FUSED_SCOPES))
+        print("fused (phase 2e) Act=SLAM launches: " + ", ".join(
+            f"{k} {launches[k]}" for k in FUSED_KERNELS))
+        fed_min = FUSED_MIN_FED * slam.frames_tracked - dropped
+        if not (tracked >= FUSED_MIN_TRACKED and slam.mapper.gps_fitted
+                and ate < FUSED_MAX_ATE and fusion.error is None
+                and not fusion.alive()
+                and fusion.frames_fed >= fed_min
+                and fusion.frames_refreshed > 0
+                and psnr >= FUSED_MIN_PSNR and cover > FUSED_MIN_COVER
+                and not missing and tiles
+                and min(launches[k] for k in FUSED_KERNELS) >= 1):
+            raise AssertionError(
+                f"phase 2e Act=SLAM: gates failed (tracked {tracked:.3f}"
+                f", GPS fitted {slam.mapper.gps_fitted}, ATE {ate:.3f}, "
+                f"fed {fusion.frames_fed} < {fed_min:.1f}?, refreshed "
+                f"{fusion.frames_refreshed}, PSNR {psnr:.2f} over "
+                f"{cover:.3f}, missing {missing}, tiles {len(tiles)}, "
+                f"alive {fusion.alive()}, launches {launches}, error "
+                f"{fusion.error})")
+        fused_playback(out)
         # FastVO's batch survey on the same dataset, one card
         out = os.path.join(root, "survey")
         for fn in wrappers.values():
@@ -2408,7 +2440,6 @@ def run_fused_phase(dev, wrappers, card, then=None):
             raise AssertionError("phase 2e Act=Survey: gates failed")
         if then is not None:
             then(ds, poses, root)
-        return first
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2624,6 +2655,53 @@ def run_online_phase(frames, poses, fx, dev, wrappers, card):
           f"fused_track_chain_images and its copy back {n_fn}; the whole "
           f"Tracker.track_chain (staging, upload, chain, copy, bookkeeping,"
           f" keyframes and their mapping inline) {n_all}")
+
+
+# ---------------------------------------------------------------------------
+# phase 2h: the JAX package's end-to-end SLAM suites on the port
+# ---------------------------------------------------------------------------
+
+# the cases run here (scripts/torch_e2e_scenes.py CARD_CASES), by their
+# measured time: loop closing (88 frames, 61 s on the card), GPS fusion (72
+# frames, 50 s), the real-texture circuit (208 frames, 117 s), the race hunt
+# and the real sequence run in scripts/torch_e2e_phase.py: with them the
+# script would pass its 680 s
+E2E_CASES = ("soak", "parallax", "blur")
+# the kernels the cases' ORB path launches at their frame sizes (320x240,
+# 256x192): K2. K1 and K4 are not on it, as in the JAX package: the flat
+# pyramid needs a level-0 block of 640 rows (flatpyr.flat_pyramid_available,
+# flatpyr_pallas._tables), and K4 a keypoint a cell on every level
+# (orb.fused_select_ok); these shapes take the resize chain and the
+# per-level selection. The feed's kernels, on the soak's FusionSystem
+E2E_PATH = ("patchgather",)
+E2E_FEED = ("shearwarp", "bandedsandwich")
+
+
+def run_e2e_phase(dev, wrappers, card):
+    """Phase 2h: `torch_e2e_scenes.run_cases` over E2E_CASES, each case
+    through `create_slam(cfg, cam, device="cuda")` (and `FusionSystem` in
+    the soak) at its reference test's scene, frames, configuration and
+    bars, with every launch count set to 0 before it and read after it.
+    Prints each case's ms a frame, tracked, ATE, loops closed, geo ATE,
+    points, keyframes, every bar beside its value, the card and its
+    launches; gates on every bar, E2E_PATH's kernels launched over the
+    phase and E2E_FEED's in the soak. Returns {kernel: launches over the
+    phase}."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "scripts"))
+    import torch_e2e_scenes as e2e
+    t0 = time.perf_counter()
+    cases, total = e2e.run_cases(E2E_CASES, dev, wrappers, card)
+    print("e2e (phase 2h) launches over the phase: " + ", ".join(
+        f"{k} {v}" for k, v in total.items())
+        + f"; {time.perf_counter() - t0:.1f} s")
+    missed = [c.name for c in cases if not c.ok]
+    soak = next(c for c in cases if c.name == "soak")
+    if missed or min(total[k] for k in E2E_PATH) < 1 \
+            or min(soak.launches[k] for k in E2E_FEED) < 1:
+        raise AssertionError(f"phase 2h: bars missed in {missed or 'none'}"
+                             ", or a kernel not launched")
+    return total
 
 
 def run_online_app(ds, poses, root, wrappers, card):

@@ -7,8 +7,12 @@ within SLAM.MaxLoopDistance of the current position), LoopDetectorBoW
 (LoopCloserDemo.cpp:253-420: match + PnP to the best candidate, whole-map
 SE3 pose graph with the reference side fixed, rigid update of frames and
 points). The matching, PnP and pose graph run on the module's device; the
-PnP's samples come from a CPU `torch.Generator` seeded 7, as the
-reference's key is, so a run on the card and one on the CPU draw the same.
+PnP's samples come from the reference's own key 7, split a candidate as
+the reference splits it (`threefry.Key`), so the port draws the
+reference's samples, and a run on the card and one on the CPU draw the
+same. Which loop a survey closes turns on these draws: a wrong-instance
+PnP passes the inlier bar under some keys (ROADMAP.md, the reference's
+known faults).
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..core.registry import LOOP_DETECTORS, LOOP_CLOSERS
-from ..ops import ba, lie, matching, ransac
+from ..ops import ba, lie, matching, ransac, threefry
 from ..utils import host_se3 as hse3
 from .frame import Frame
 from .worldmap import WorldMap
@@ -142,7 +146,7 @@ class LoopCloserSE3Graph:
         self.device = resolve_device(device)
         self.detector = detector or LoopDetectorDistance(wmap, cfg,
                                                          device=device)
-        self._gen = torch.Generator().manual_seed(7)
+        self._key = threefry.Key(7)
         self.closed_loops = 0
         self.consistent_loops = 0   # verified but already-closed (skipped)
         self._last_close_id = -10 ** 9
@@ -222,7 +226,8 @@ class LoopCloserSE3Graph:
             sel = np.nonzero(okn & has)[0]
             p3d[idxn[sel]] = pos[sel]
             w[idxn[sel]] = True
-            res = ransac.find_pnp(self._gen, _t(p3d, dev),
+            self._key, key = self._key.split()
+            res = ransac.find_pnp(key, _t(p3d, dev),
                                   _t(frame.rays[:, :2], dev), _t(w, dev),
                                   threshold=3.0 / frame.camera.fx)
             if bool(res.ok) and float(res.score) >= self.min_inliers:

@@ -12,6 +12,8 @@ padded and masked, and nothing is read back to the host: the result's
 Randomness: each public estimator takes a `torch.Generator` and draws its
 samples as the reference does, with a Gumbel top-k a hypothesis (uniform
 without replacement over the valid points), on the generator's device.
+`find_pnp` also takes a `threefry.Key`, and then draws the reference's own
+samples for that key (its Gumbel noise made on the CPU).
 Each also has a `_..._from_samples` variant that takes the drawn indices
 [iters, k], so that the same samples can be handed to two runs (the JAX
 package's and this one, or the card's and the CPU's).
@@ -32,7 +34,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import lie
+from . import lie, threefry
 
 
 class RansacResult(NamedTuple):
@@ -46,8 +48,11 @@ class RansacResult(NamedTuple):
 # sampling
 # ---------------------------------------------------------------------------
 
-def gumbel(generator: torch.Generator, shape, dtype=torch.float32):
-    """Standard Gumbel noise of `shape`, drawn on the generator's device."""
+def gumbel(generator, shape, dtype=torch.float32):
+    """Standard Gumbel noise of `shape`, drawn on the generator's device
+    (a `threefry.Key`'s float32 noise, on the CPU)."""
+    if isinstance(generator, threefry.Key):
+        return generator.gumbel(shape)
     u = torch.rand(shape, generator=generator, dtype=dtype,
                    device=generator.device)
     tiny = torch.finfo(dtype).tiny
@@ -379,8 +384,11 @@ def find_pnp(generator, p3d, p2n, valid, threshold: float = 0.01,
     Half the hypotheses are 6-point DLTs, half 4-point planar solves (the
     DLT is degenerate on a plane, aerial mapping's common case)."""
     n = p3d.shape[0]
-    idx6 = sample_indices(generator, n, valid, iters // 2, 6)
-    idx4 = sample_indices(generator, n, valid, iters - iters // 2, 4)
+    g6 = g4 = generator
+    if isinstance(generator, threefry.Key):
+        g6, g4 = generator.split()      # as the reference splits its key
+    idx6 = sample_indices(g6, n, valid, iters // 2, 6)
+    idx4 = sample_indices(g4, n, valid, iters - iters // 2, 4)
     return _find_pnp_from_samples(idx6, idx4, p3d, p2n, valid, threshold,
                                   refine_iters)
 

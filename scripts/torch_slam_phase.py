@@ -69,11 +69,6 @@ def main() -> int:
         print("torch_slam_phase: no CUDA device", file=sys.stderr)
         return 2
     from pislamfusion_tpu_torch import _build
-    from pislamfusion_tpu_torch.ops import stencil
-    from pislamfusion_tpu_torch.ops import shearwarp as sw
-    from pislamfusion_tpu_torch.ops.features import (fastselect, flatpyr,
-                                                     packedpyr)
-    from pislamfusion_tpu_torch.ops.features import patchgather as pg
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -84,13 +79,7 @@ def main() -> int:
     _build.build_all()
     print(f"built in {time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda")
-    wrappers = {"flatpyr": flatpyr.build_flat_pyramid,
-                "patchgather": pg.gather_patches, "shearwarp": sw.warp_patch,
-                "fastselect": fastselect.fast_cell_winners,
-                "bandedstack": stencil.banded_stack,
-                "bilineargrid": pg.bilinear_grid,
-                "packedpyr": packedpyr.build_packed_pyramid,
-                "bandedsandwich": stencil.banded_sandwich}
+    wrappers = cs.kernel_wrappers()
     H, W, fx = 1080, 1920, 1200.0
     frames, poses = cs.render_strip(36, H, W, fx, 0.12, 6144, dev)
     t0 = time.perf_counter()

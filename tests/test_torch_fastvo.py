@@ -310,12 +310,18 @@ GEOMETRY_MODULES = (
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    """In a fresh interpreter (this one has JAX loaded by conftest)."""
+    """In a fresh interpreter (this one has JAX loaded by conftest): every
+    module of the port, chip_smoke.py, the end-to-end scenes and phase
+    script (scripts/torch_e2e_scenes.py, scripts/torch_e2e_phase.py) and
+    the pipeline demo the real-sequence case reads its PSNR from."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import pislamfusion_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "sys.path[:0] = ['scripts', 'examples']\n"
+        "import chip_smoke, torch_e2e_scenes, torch_e2e_phase\n"
+        "import torch_pipeline_demo\n"
         f"missing = [m for m in {GEOMETRY_MODULES!r}\n"
         "           if 'pislamfusion_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"

@@ -390,7 +390,7 @@ def test_slam_modules_and_registry_names():
     assert type(slam.loop_closer) is loopclose.LoopCloserSE3Graph
     assert slam.tracker.generator.initial_seed() == 0
     assert slam.mapper.generator.initial_seed() == 1
-    assert slam.loop_closer._gen.initial_seed() == 7
+    assert slam.loop_closer._key.words == (0, 7)   # PRNGKey(7)
     for reg, names in ((FEATURE_DETECTORS, ("ORB", "cvORB", "liu_ORB",
                                             "liu_cvORB", "Sift")),
                        (TRACKERS, ("opt", "demo", "testInit",

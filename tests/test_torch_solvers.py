@@ -57,6 +57,7 @@ from pislamfusion_tpu_torch.ops import lie as tlie
 from pislamfusion_tpu_torch.ops import matching as tmatch
 from pislamfusion_tpu_torch.ops import multih as tmh
 from pislamfusion_tpu_torch.ops import ransac as tr
+from pislamfusion_tpu_torch.ops import threefry
 from torch_port_reference import once_per_session, torch_one_thread  # noqa
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "data", "golden",
@@ -481,6 +482,42 @@ def test_pnp_ransac_exact_on_the_same_samples(ransac_ref, planar):
     tres = tr._find_pnp_from_samples(T(i6), T(i4), T(X), T(p2n), T(valid),
                                      threshold=0.01)
     assert bool(jres[3])
+
+    def cmp(tm, jm):
+        np.testing.assert_allclose(tm, jm, atol=1e-4)
+    _assert_result(tres, jres, cmp)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 32 - 1])
+def test_threefry_key_splits_and_draws_as_the_reference(seed):
+    """threefry.Key against jax.random on three splits: the key words
+    equal, the Gumbel noise within 2.5e-7 absolute and relative (XLA's log
+    and torch's round apart; the uniforms under them are equal) and the
+    Gumbel top-k samples equal."""
+    jkey, tkey = jax.random.PRNGKey(seed), threefry.Key(seed)
+    assert tkey.words == tuple(np.asarray(jkey).tolist())
+    for _ in range(3):
+        (jkey, jsub), (tkey, tsub) = jax.random.split(jkey), tkey.split()
+        for j, t in ((jkey, tkey), (jsub, tsub)):
+            assert t.words == tuple(np.asarray(j).tolist())
+        g = np.asarray(jax.random.gumbel(jsub, (ITERS, 300)))
+        t = tsub.gumbel((ITERS, 300)).numpy()
+        np.testing.assert_allclose(t, g, rtol=2.5e-7, atol=2.5e-7)
+        valid = np.arange(300) % 4 != 0
+        np.testing.assert_array_equal(
+            N(tr.sample_indices(tsub, 300, T(valid), ITERS, 6)),
+            _draw(jsub, 300, valid, ITERS, 6))
+
+
+@pytest.mark.parametrize("planar", [False, True])
+def test_pnp_ransac_from_the_references_key(ransac_ref, planar):
+    """find_pnp on threefry.Key(5) runs the samples that the JAX package's
+    find_pnp draws from PRNGKey(5), to the same result (the loop closer's
+    verification draws so)."""
+    X, p2n, valid = _ransac_inputs()["pnp"][planar]
+    _, jres = ransac_ref["pnp", planar]
+    tres = tr.find_pnp(threefry.Key(5), T(X), T(p2n), T(valid),
+                       threshold=0.01, iters=ITERS)
 
     def cmp(tm, jm):
         np.testing.assert_allclose(tm, jm, atol=1e-4)

@@ -18,6 +18,7 @@ of the same worker.
 """
 import contextlib
 import pickle
+import threading
 
 import numpy as np
 import pytest
@@ -547,6 +548,145 @@ def jax_chain_capture():
     return inputs, kw, poses, np.asarray(rows)
 
 
+class LaggedPool:
+    """The mapper's one-worker pool (`core.messenger.ThreadPool`) replaced
+    by a fixed schedule: a keyframe's job runs on the tracking thread just
+    before the frame `lag` frames after it is tracked, so the tracker runs
+    `lag` frames ahead of its mapper and a keyframe skips its local BA (the
+    reference's _abordBundle) exactly when a newer keyframe came within
+    those frames. `pending()` (read only by `Mapper.finish`, after the
+    tracking thread ended) runs what is left. A job that raises is counted
+    in `errors`, as the pool's future would hold it."""
+
+    def __init__(self, lag):
+        self.lag, self.jobs, self.errors = lag, [], 0
+        self.tracked = threading.Semaphore(0)
+
+    def add(self, fn, frame, *args):
+        self.jobs.append((frame.id, fn, (frame, *args)))
+
+    def run_due(self, fid):
+        while self.jobs and self.jobs[0][0] + self.lag <= fid:
+            self._run(self.jobs.pop(0))
+
+    def _run(self, job):
+        try:
+            job[1](*job[2])
+        except Exception:                                  # noqa: BLE001
+            self.errors += 1
+
+    def pending(self):
+        while self.jobs:
+            self._run(self.jobs.pop(0))
+        return 0
+
+
+@contextlib.contextmanager
+def lagged_mapper(messenger_module, slam_class, lag, pool_class=LaggedPool):
+    """Online SLAM (either package: its `core.messenger` module and `SLAM`
+    class) with a `pool_class` (a `LaggedPool`) as the mapper's pool.
+    `SLAM._track_one` runs the jobs due before each frame and releases the
+    pool's `tracked` semaphore after it, so that a feeder can wait for each
+    frame."""
+    thread_pool, track_one = messenger_module.ThreadPool, slam_class._track_one
+
+    def tracked_one(self, frame):
+        pool = self.mapper._pool
+        pool.run_due(frame.id)
+        try:
+            return track_one(self, frame)
+        finally:
+            pool.tracked.release()
+
+    messenger_module.ThreadPool = lambda workers=1: pool_class(lag)
+    slam_class._track_one = tracked_one
+    try:
+        yield
+    finally:
+        messenger_module.ThreadPool = thread_pool
+        slam_class._track_one = track_one
+
+
+# tests/test_soak.py:91-121's online liveness run (40 frames 1.8 m apart,
+# loop closing, noisy GPS)
+STARVED_CFG = (("FeatureDetector", "ORB"), ("SLAM.nFeature", "500"),
+               ("SLAM.MaxOverlap", "0.9"), ("SLAM.LoopClose", "1"),
+               ("SLAM.isOnline", "1"), ("SLAM.BAFrameCap", "8"),
+               ("SLAM.BAPointCap", "1024"), ("SLAM.BAObsCap", "4096"),
+               ("SLAM.LocalBAIters", "6"), ("GPS.MinFrames2Fit", "5"))
+STARVED_ORIGIN = (116.0, 40.0, 0.0)
+
+
+def starved_scene():
+    """tests/test_soak.py:91-121's scene, rendered by the port's warp on
+    the CPU: (frames, true poses, GPS fixes (lon, lat, alt)) from rng 5."""
+    import chip_smoke
+    from pislamfusion_tpu_torch.core.camera import Camera
+    from pislamfusion_tpu_torch.core.gps import LocalFrame
+    rng = np.random.default_rng(5)
+    ground = torch.from_numpy(chip_smoke.survey_ground(rng))
+    cam = Camera(*SLAM_CAM)
+    poses = np.stack([np.array([26.0 + 1.8 * i, 36.0, 25.0, 1.0, 0, 0, 0])
+                      for i in range(40)])
+    frames = [chip_smoke.survey_view(ground, cam, p).numpy() for p in poses]
+    local = LocalFrame(*STARVED_ORIGIN)
+    fixes = [local.local_to_lla(p[:3] + rng.normal(0, 0.4, 3))
+             for p in poses]
+    return frames, poses, fixes
+
+
+def starved_run(slam, scene, local_frame, finish, join_s=60.0):
+    """Feed the scene to an online `slam` made under `lagged_mapper`, one
+    frame at a time (each tracked before the next is fed), then `finish()`
+    (whether the SLAM's threads ended).
+    Returns what the test compares: frames tracked and counted, the
+    keyframe ids, and the keyframes' geo ATE (their centres against the
+    truth in the SLAM's ENU frame, tests/test_soak.py:70-77's measure),
+    GPS fitted, loops closed, points, errors."""
+    frames, poses, fixes = scene
+    for i, img in enumerate(frames):
+        slam.track(img, float(i), gps_lla=fixes[i], gps_acc=0.5)
+        if not slam.mapper._pool.tracked.acquire(timeout=join_s):
+            raise AssertionError(f"frame {i} not tracked within {join_s} s")
+    done = finish()
+    kfs = slam.map.keyframes()
+    est = np.stack([f.pose_c2w[:3] for f in kfs])
+    gt = np.stack([slam._local_frame.to_local(
+        *local_frame.local_to_lla(poses[f.id][:3])) for f in kfs])
+    return {"tracked": int(slam.frames_tracked),
+            "total": int(slam.frames_total),
+            "keyframes": [int(f.id) for f in kfs],
+            "geo_ate": float(np.sqrt(np.mean(np.sum((est - gt) ** 2, -1)))),
+            "gps_fitted": bool(slam.mapper.gps_fitted),
+            "closed": int(slam.loop_closer.closed_loops),
+            "points": int(slam.map.point_num()),
+            "errors": int(slam.track_errors + slam.mapper._pool.errors),
+            "finished": done}
+
+
+def jax_starved_runs(lags):
+    """The JAX package's online SLAM on `starved_scene` under
+    `lagged_mapper` at each lag: {lag: starved_run's dict}."""
+    import importlib
+    from pislamfusion_tpu.core.camera import Camera
+    from pislamfusion_tpu.core.gps import LocalFrame
+    from pislamfusion_tpu.core.svar import Svar
+    from pislamfusion_tpu.models import slam as js
+    messenger = importlib.import_module("pislamfusion_tpu.core.messenger")
+    scene = starved_scene()
+    out = {}
+    for lag in lags:
+        cfg = Svar()
+        for k, v in STARVED_CFG:
+            cfg.set(k, v)
+        with lagged_mapper(messenger, js.SLAM, lag):
+            slam = js.create_slam(cfg, Camera(*SLAM_CAM))
+            out[lag] = starved_run(
+                slam, scene, LocalFrame(*STARVED_ORIGIN),
+                lambda: slam.finish() or not slam._worker.is_alive())
+    return out
+
+
 def _main(argv):
     """PYTHONPATH=. python tests/torch_port_reference.py solver-chain
     FILE.npz (from the repository root): the JAX package's solver chain,
@@ -559,12 +699,21 @@ def _main(argv):
     package's SLAM over tests/test_slam.py's survey (the frames of
     `slam_survey_frames`), its frames tracked, keyframes and ATE against
     the truth (the port's, on the CPU at several thread counts:
-    scripts/torch_slam_spread.py)."""
+    scripts/torch_slam_spread.py).
+
+    PYTHONPATH=.:tests python tests/torch_port_reference.py online-starved
+    LAG [LAG ...]: `jax_starved_runs` at each lag, one JSON line."""
     import jax
     jax.config.update("jax_platforms", "cpu")
     import chip_smoke
     if argv == ["slam-survey"]:
         return _jax_slam_survey()
+    if argv[:1] == ["online-starved"]:
+        import json
+        from pislamfusion_tpu.core.jaxcache import enable_persistent_cache
+        enable_persistent_cache()
+        print(json.dumps(jax_starved_runs([int(a) for a in argv[1:]])))
+        return None
     if len(argv) != 2 or argv[0] != "solver-chain":
         raise SystemExit(_main.__doc__)
     z = np.load(argv[1])
