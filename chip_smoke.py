@@ -71,11 +71,13 @@ It builds the port's CUDA kernels from `pislamfusion_tpu_torch/csrc/`
    tracked, ATE under 2 % of the span, 6 keyframes (ORB), a local BA and
    those launches;
 2f. drives SLAM online (`SLAM.isOnline` 1: the tracking thread and the
-   mapper's worker), bench.py's SLAM pass: frames 0-23 of the strip out
-   and back (47 frames, uint8 gray from the host), ORB-1000, no loop
-   closing, in the four (SLAM.TrackChain, SLAM.TrackScale)
-   configurations (1, 1), (8, 1), (1, 2), (8, 2), one round (bench.py
-   runs two; one keeps the script near half its time limit), then
+   mapper's worker), bench.py's SLAM pass cut to frames 0-11 of the strip
+   out and back (23 frames, uint8 gray from the host; bench.py takes
+   frames 0-23, 47 frames: a depth cut that makes room for phase 2i),
+   ORB-1000, no loop closing, in the four (SLAM.TrackChain,
+   SLAM.TrackScale) configurations (1, 1), (8, 1), (1, 2), (8, 2), one
+   round (bench.py runs two; one keeps the script near half its time
+   limit), then
    SIFT-1000 chained over frames
    0-17, the synchronising calls of one chain of 8 frames
    (`torch.cuda.set_sync_debug_mode`), and, after phase 2e, one online
@@ -152,8 +154,21 @@ It builds the port's CUDA kernels from `pislamfusion_tpu_torch/csrc/`
    in the JAX package) and K3 and K8 on the soak's feed. Loop closing,
    GPS fusion, the real-texture circuit, the race hunt and the real
    sequence run in `scripts/torch_e2e_phase.py` alone, by their time;
+2i. then runs both vocabulary trainers on the card
+   (scripts/torch_train_default_vocab.py, scripts/torch_train_sift_vocab.py)
+   at TRAINER_VIEWS views of 480x640 each (a depth cut of their 24 and 16),
+   each with every launch count set to 0 before it and read after it, and
+   gates on the words and nodes, the .gbow's save -> load round trip and
+   its embedded module, and K2 (ORB), K5 and K6 (SIFT) launched, reporting
+   K1's and K4's launches; then one combination of doc/ABLATION.md's v3
+   grid (`fixture=real gps=0.5 refresh=1 seed=0`, the pipeline demo's 52
+   frames) through scripts/torch_batch_evaluate.py in a subprocess,
+   printing its ms a frame, tracked share, ATE and PSNR beside the JAX
+   package's, and gates on a tracked share over 0.85, a mosaic that is
+   not blank (PSNR over 0 dB), no fusion error and K2, K3 and K8
+   launched;
 and prints the kernel table (each kernel's launches on its path and over
-phases 2g and 2h) and the result line.
+phases 2g, 2h and 2i) and the result line.
 
 Every failure raises and ends the script with a nonzero exit code. With no
 CUDA device it exits nonzero before printing any result.
@@ -1219,22 +1234,6 @@ def profile_frames(run, k: int):
         f"{n} {us / 1e3 / k:.4f}" for n, us in ours.items() if us))
 
 
-def kernel_wrappers():
-    """{kernel: the wrapper that launches it and counts its launches}."""
-    from pislamfusion_tpu_torch.ops import shearwarp as sw
-    from pislamfusion_tpu_torch.ops import stencil
-    from pislamfusion_tpu_torch.ops.features import (fastselect, flatpyr,
-                                                     packedpyr)
-    from pislamfusion_tpu_torch.ops.features import patchgather as pg
-    return {"flatpyr": flatpyr.build_flat_pyramid,
-            "patchgather": pg.gather_patches, "shearwarp": sw.warp_patch,
-            "fastselect": fastselect.fast_cell_winners,
-            "bandedstack": stencil.banded_stack,
-            "bilineargrid": pg.bilinear_grid,
-            "packedpyr": packedpyr.build_packed_pyramid,
-            "bandedsandwich": stencil.banded_sandwich}
-
-
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1378,7 +1377,7 @@ def main() -> int:
     ], flush)
     del m2d, patch, w0, lap1, fv_patch, w_half, flush
     rows = [k1, k2, k3, k4, k5, k6, k7, k8]
-    wrappers = kernel_wrappers()
+    wrappers = _build.kernel_wrappers()
 
     # ---- phase 2: the main paths, through FastVO.process
     orb_launches = run_main_path(
@@ -1427,8 +1426,8 @@ def main() -> int:
                    SLAM_MIN_KEYFRAMES)
     run_slam_phase("Sift", frames_s[:18], poses_s[:18], fx, dev, wrappers,
                    ("bandedstack", "bilineargrid"))
-    # ---- phase 2f: online SLAM (bench.py's SLAM pass): ORB-1000 over 47
-    # frames out and back in the four (TrackChain, TrackScale)
+    # ---- phase 2f: online SLAM (bench.py's SLAM pass, cut): ORB-1000 over
+    # 19 frames out and back in the four (TrackChain, TrackScale)
     # configurations, once each, then SIFT-1000 chained
     run_online_phase(frames_s, poses_s, fx, dev, wrappers, card)
     del frames_s
@@ -1447,6 +1446,10 @@ def main() -> int:
     # parallax, blur and noise) at their own scenes and bars
     e2e_launches = run_e2e_phase(dev, wrappers, card)
     lap("phase 2h")
+    # ---- phase 2i: the vocabulary trainers on the card, and one
+    # combination of the ablation grid through the harness
+    ablation_launches = run_ablation_phase(dev, wrappers, card)
+    lap("phase 2i")
     for row in rows:
         # each kernel's count from the path it was ported for
         path = (orb_launches if row["name"] in (
@@ -1460,6 +1463,8 @@ def main() -> int:
         row["launches_2g"] = scaleout_launches[row["name"]]
         # and over phase 2h (the end-to-end SLAM cases)
         row["launches_2h"] = e2e_launches[row["name"]]
+        # and over phase 2i (the trainers and the harness's combination)
+        row["launches_2i"] = ablation_launches[row["name"]]
 
     print(card)
     print(json.dumps({"kernels": rows}))
@@ -1745,18 +1750,20 @@ def solver_chain(frames, poses, fx, n_features=1000, n_levels=8,
     8. `fit_sim3` of the tol=0 BA's camera centres to the true ones;
     9. `match_multih` of frames 0 and K-1 (4 planes, `mh_iters`).
 
-    draws: None runs each RANSAC through its public entry point with a CPU
-    generator seeded by the step; a `Draws` hands every RANSAC its samples
-    through the `_from_samples` variants. step(name), when given, returns
-    the context each step runs in (timing, profiling). Returns a dict of
-    the steps' results as tensors on the device."""
+    draws: None runs each RANSAC through its public entry point with the
+    reference's key (`threefry.Key`) seeded by the step; a `Draws` hands
+    every RANSAC its samples through the `_from_samples` variants.
+    step(name), when given, returns the context each step runs in (timing,
+    profiling). Returns a dict of the steps' results as tensors on the
+    device."""
     import contextlib
 
     import torch
     from pislamfusion_tpu_torch import Camera
     from pislamfusion_tpu_torch.core.svar import Svar
     from pislamfusion_tpu_torch.models.initializers import create_initializer
-    from pislamfusion_tpu_torch.ops import ba, lie, matching, multih, ransac
+    from pislamfusion_tpu_torch.ops import (ba, lie, matching, multih,
+                                            ransac, threefry)
     from pislamfusion_tpu_torch.ops import image as im
     from pislamfusion_tpu_torch.ops.features import orb
 
@@ -1768,7 +1775,7 @@ def solver_chain(frames, poses, fx, n_features=1000, n_levels=8,
     r = {}
 
     def gen(i):
-        return torch.Generator().manual_seed(1000 * seed + i)
+        return threefry.Key(1000 * seed + i)
 
     with step("detect"):
         if feats is None:
@@ -2457,6 +2464,13 @@ ONLINE_CONFIGS = ((1, 1), (8, 1), (1, 2), (8, 2))
 # 0.35 on a busy host)
 ONLINE_MIN_TRACKED, ONLINE_MAX_ATE_SHARE = 0.5, 0.02
 ONLINE_JOIN_S = 120.0    # SLAM.finish's bound on the thread and the mapper
+# frames of the strip out and back: bench.py takes 24 (47 frames); 12 (23
+# frames) is a depth cut that keeps the script within its time with
+# phase 2i (with 16, 31 frames, the whole script took 720 s on an H100,
+# the four ORB configurations 2.2 s a frame together). 12 is the least
+# `chain_syncs` can take: its chain of 8 starts at frame 4 of the pass
+# and must not meet the turn (at 10 it consumed 6 of 8 frames)
+ONLINE_FRAMES = 12
 ORB_KERNELS = ("flatpyr", "fastselect", "patchgather")
 # at TrackScale 2 (960x540) ORB-1000's 8 levels do not all keep one
 # keypoint a cell, so the per-level chain selects instead of K4
@@ -2610,14 +2624,14 @@ def chain_syncs(gray, fx, dev, k=8):
 
 
 def run_online_phase(frames, poses, fx, dev, wrappers, card):
-    """Phase 2f: bench.py's SLAM pass on the port. The first 24 frames of
-    the strip in bench.py's out-and-back order (47 frames), uint8 gray
+    """Phase 2f: bench.py's SLAM pass on the port. The first ONLINE_FRAMES
+    frames of the strip in bench.py's out-and-back order, uint8 gray
     from the host, ORB-1000, no loop closing, SLAM.isOnline 1: the four
     (TrackChain, TrackScale) configurations once each (bench.py:306-316
     runs them in two interleaved rounds); then
     SIFT-1000 with TrackChain 8 over frames 0-17; and the synchronising
     calls of one chain. Gates in `online_gates`."""
-    k = min(len(poses), 24)
+    k = min(len(poses), ONLINE_FRAMES)
     order = online_order(k)
     gray = bench_gray(frames[:k].cpu().numpy())[order]
     gt = poses[:k][order]
@@ -2641,7 +2655,7 @@ def run_online_phase(frames, poses, fx, dev, wrappers, card):
                      else ORB_HALF_KERNELS, chain)
         runs[(chain, scale)] = (r["ms"], r["tracked"])
     print("online (phase 2f) ORB, one round, ms a frame (frames/s, tracked "
-          "of 47): " + "; ".join(
+          f"of {K}): " + "; ".join(
               f"TrackChain {c} TrackScale {s} {ms:.1f} ({1e3 / ms:.2f}, "
               f"{t})" for (c, s), (ms, t) in runs.items()))
     sg = bench_gray(frames[:18].cpu().numpy())
@@ -2701,6 +2715,183 @@ def run_e2e_phase(dev, wrappers, card):
             or min(soak.launches[k] for k in E2E_FEED) < 1:
         raise AssertionError(f"phase 2h: bars missed in {missed or 'none'}"
                              ", or a kernel not launched")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 2i: the vocabulary trainers and the ablation harness
+# ---------------------------------------------------------------------------
+
+# training views a trainer: a depth cut (the trainers' defaults are 24 ORB
+# and 16 SIFT views)
+TRAINER_VIEWS = 4
+# at 4 views a k=10, L=3 tree leaves some of its 1000 leaves unsplit (the
+# port on the CPU: 957 ORB words, 874 SIFT); the gate asks for more than 800
+TRAINER_MIN_WORDS = 800
+TRAINER_KERNELS = {"orb": ("patchgather",),
+                   "sift": ("bandedstack", "bilineargrid")}
+# one combination of doc/ABLATION.md's v3 grid, at its full depth (the
+# pipeline demo's 52-frame 320x240 survey), and its bars
+ABLATION_COMBO = ("fixture=real", "gps=0.5", "refresh=1", "seed=0")
+ABLATION_MIN_TRACKED = 0.85
+ABLATION_KERNELS = ("patchgather", "shearwarp", "bandedsandwich")
+
+
+def vocabulary_equal(a, b):
+    """Two vocabularies hold the same tree, weights and words."""
+    return ((a.k, a.L, a.weighting, a.scoring)
+            == (b.k, b.L, b.weighting, b.scoring)
+            and all(np.array_equal(getattr(a, f), getattr(b, f))
+                    for f in ("node_desc", "node_parent", "node_weight",
+                              "node_children", "node_word", "words")))
+
+
+def run_trainer(name, trainer, root, dev, wrappers):
+    """One vocabulary trainer over TRAINER_VIEWS views on the card, its
+    .gbow saved, loaded back and embedded as a module. Returns (its line,
+    its launches, whether its gates held)."""
+    import importlib.util
+
+    import torch
+    from pislamfusion_tpu_torch.core import resource
+    from pislamfusion_tpu_torch.ops.vocabulary import Vocabulary
+    for w in wrappers.values():
+        w.launches = 0
+    torch_sync(dev)
+    t0 = time.perf_counter()
+    voc, D = trainer.train(TRAINER_VIEWS, dev, log=lambda _: None)
+    torch_sync(dev)
+    secs = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    gbow = os.path.join(root, f"{name}.gbow")
+    module = os.path.join(root, f"{name}_vocab.py")
+    import torch_train_default_vocab
+    torch_train_default_vocab.save(voc, gbow, module,
+                                   f"{name}_phase2i.gbow")
+    back = Vocabulary.load(gbow)
+    spec = importlib.util.spec_from_file_location(f"{name}_phase2i", module)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    with open(gbow, "rb") as f:
+        embedded = resource.get(f"{name}_phase2i.gbow") == f.read()
+    words, nodes = voc.size(), len(voc.node_parent)
+    round_trip = back is not None and vocabulary_equal(voc, back)
+    # the kernels launch on the card only (the CPU takes their plain
+    # versions: scripts/torch_ablation_phase.py --device cpu)
+    launched = (torch.device(dev).type != "cuda"
+                or min(launches[k] for k in TRAINER_KERNELS[name]) >= 1)
+    ok = (TRAINER_MIN_WORDS < words <= 1000 and words < nodes <= 1111
+          and round_trip and embedded and launched)
+    line = (f"ablation (phase 2i) {name} vocabulary trainer, "
+            f"{TRAINER_VIEWS} views 480x640: {secs:.1f} s; {len(D)} "
+            f"descriptors {D.dtype} x{D.shape[1]}; {words} words, {nodes} "
+            f"nodes (k 10, L 3); save -> load equal {round_trip}, embedded "
+            f"module equal {embedded}; launches " + ", ".join(
+                f"{k} {v}" for k, v in launches.items()))
+    return line, launches, ok
+
+
+def torch_sync(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_ablation_combo(root, dev, card):
+    """ABLATION_COMBO through scripts/torch_batch_evaluate.py in a
+    subprocess on `dev`. Returns (its metrics, the JAX package's row of
+    doc/ablation_v3_summary.json)."""
+    import torch
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "ablation")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, os.path.join(
+        here, "scripts", "torch_batch_evaluate.py"), out, *ABLATION_COMBO,
+        "--device", torch.device(dev).type],
+        capture_output=True, text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    print(r.stdout, end="", flush=True)
+    if r.returncode != 0:
+        raise AssertionError(f"phase 2i: the harness exited {r.returncode}"
+                             f": {r.stderr[-2000:]}")
+    sys.path.insert(0, os.path.join(here, "scripts"))
+    import torch_batch_evaluate as harness
+    name = harness.combo_name([a.split("=") for a in ABLATION_COMBO])
+    with open(os.path.join(out, name, "metrics.json")) as f:
+        m = json.load(f)
+    with open(os.path.join(here, "doc", "ablation_v3_summary.json")) as f:
+        ref = json.load(f)[name]
+    print(f"ablation (phase 2i) {name} (scripts/torch_batch_evaluate.py, "
+          f"{torch.device(dev).type}, {secs:.1f} s with its processes' "
+          f"start): "
+          f"{1e3 * m['wall_s'] / m['frames']:.1f} ms a frame over "
+          f"{m['frames']} frames; tracked {m['tracked_ratio']:.4f}, ATE "
+          f"{m['ate_pct']:.4f} % of the span, PSNR {m['psnr']:.4f} dB over "
+          f"{m['coverage']:.4f} coverage, loops {m['loops_closed']}, GPS "
+          f"fitted {m['gps_fitted']}, fed {m['mosaic_frames']}, refreshed "
+          f"{m['frames_refreshed']}, fusion error {m['fusion_error']}; the "
+          f"JAX package (CPU, doc/ablation_v3_summary.json): "
+          f"{1e3 * ref['wall_s'] / ref['frames']:.1f} ms a frame, tracked "
+          f"{ref['tracked_ratio']:.4f}, ATE {ref['ate_pct']:.4f} %, PSNR "
+          f"{ref['psnr']:.4f} dB (refresh off: 0.0, a blank canvas); "
+          f"launches " + ", ".join(f"{k} {v}" for k, v in
+                                   m["launches"].items()) + f" ({card})",
+          flush=True)
+    return m, ref
+
+
+def run_ablation_phase(dev, wrappers, card):
+    """Phase 2i: both vocabulary trainers on the card at TRAINER_VIEWS
+    views (gates: words and nodes, the .gbow's save -> load round trip and
+    its embedded module equal, K2 (ORB), K5 and K6 (SIFT) launched; K1 and
+    K4 reported: at 480x640 neither takes ORB's pyramid and selection,
+    as in the JAX package), then ABLATION_COMBO through the harness in a
+    subprocess (gates: tracked share over ABLATION_MIN_TRACKED, a mosaic
+    that is not blank (PSNR over 0 dB), no fusion error, K2, K3 and K8
+    launched). Returns {kernel: launches over the phase}."""
+    import shutil
+    import tempfile
+
+    import torch
+    from pislamfusion_tpu_torch.ops.features import flatpyr
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "scripts"))
+    import torch_train_default_vocab as orb_trainer
+    import torch_train_sift_vocab as sift_trainer
+    root = tempfile.mkdtemp(prefix="chip_smoke_2i_")
+    total = {k: 0 for k in wrappers}
+    failed = []
+    try:
+        for name, trainer in (("orb", orb_trainer), ("sift", sift_trainer)):
+            line, launches, ok = run_trainer(name, trainer, root, dev,
+                                             wrappers)
+            print(line + f" ({card})", flush=True)
+            for k, v in launches.items():
+                total[k] += v
+            if name == "orb":
+                p = orb_trainer.ORB_PARAMS
+                flat = flatpyr.flat_pyramid_available(
+                    480, 640, p.n_levels, p.scale_factor, p.cell)
+                print("ablation (phase 2i) at 480x640, 4 levels: K1 "
+                      f"launched {launches['flatpyr']} times (the flat "
+                      f"plan available: {flat}), K4 "
+                      f"{launches['fastselect']} times (it needs a "
+                      "keypoint a cell on every level)", flush=True)
+            if not ok:
+                failed.append(f"{name} trainer")
+        m, _ = run_ablation_combo(root, dev, card)
+        for k, v in m["launches"].items():
+            total[k] += v
+        launched = (torch.device(dev).type != "cuda" or min(
+            m["launches"][k] for k in ABLATION_KERNELS) >= 1)
+        if not (m["tracked_ratio"] > ABLATION_MIN_TRACKED and m["psnr"] > 0
+                and not m["fusion_error"] and launched):
+            failed.append("the harness's combination")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("ablation (phase 2i) launches over the phase: " + ", ".join(
+        f"{k} {v}" for k, v in total.items()), flush=True)
+    if failed:
+        raise AssertionError(f"phase 2i: gates failed in {failed}")
     return total
 
 

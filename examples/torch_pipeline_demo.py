@@ -15,7 +15,16 @@ monocular gauge does not penalize the comparison); then PIPELINE OK when
 more than 85 % of frames tracked, ATE is under 3 % of the span, the PSNR
 over 14 dB and the fusion consumer raised nothing.
 
+The scene families of pipeline_demo.py's `fixture` (the ablation axes of
+doc/ABLATION.md): "flat", the procedural planar texture; "parallax", the
+3D world of raised slabs with an exposure drift a frame
+(scripts/torch_e2e_scenes.py, tests/synth_survey.py's counterparts);
+"real", the aerial photograph turned and mirrored by the seed, with
+sensor noise. `--gps SIGMA` adds a noisy GPS fix a frame, the reference's
+deployment mode, which drives the mosaic's refresh/rebase chain.
+
 Usage: python examples/torch_pipeline_demo.py [out_dir] [--device cuda|cpu]
+    [--fixture flat|parallax|real] [--seed N] [--gps SIGMA]
 (the device defaults to cuda).
 """
 import argparse
@@ -125,15 +134,52 @@ def mosaic_psnr_vs_truth(map2d, ground, S_gt2est, plane=None,
     return psnr, float(cov.mean())
 
 
+def _e2e_scenes():
+    """scripts/torch_e2e_scenes.py: the parallax world and the photo."""
+    scripts = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    import torch_e2e_scenes
+    return torch_e2e_scenes
+
+
+def fixture_scene(fixture, rng, seed):
+    """pipeline_demo.run_demo's scene of `fixture`, drawn from `rng` in its
+    order: (ground truth texture [n, n, 3] float32, the parallax world or
+    None)."""
+    if fixture == "parallax":
+        e2e = _e2e_scenes()
+        world = e2e.make_world(rng)
+        return e2e.true_ortho(world), world
+    if fixture == "real":
+        # the photo is deterministic: the seed turns and mirrors it and
+        # draws the sensor noise
+        ground = np.rot90(_e2e_scenes().real_ground(), int(seed) % 4).copy()
+        if (int(seed) // 4) % 2:
+            ground = ground[:, ::-1].copy()
+        ground = np.clip(ground + rng.normal(0, 3.0, ground.shape), 0,
+                         255).astype(np.float32)
+        return ground, None
+    if fixture != "flat":
+        raise ValueError(f"unknown fixture {fixture!r}")
+    return make_ground(rng), None
+
+
 def run_demo(out_dir=".", seed=11, n_feats=600, loop_close=True,
-             device="cuda", verbose=True, overrides=None, gps_sigma=None):
-    """pipeline_demo.run_demo's flat fixture on the port; `gps_sigma`
-    (meters) adds a noisy GPS fix a frame."""
+             cam=None, poses=None, device="cuda", verbose=True,
+             overrides=None, fixture="flat", gps_sigma=None):
+    """pipeline_demo.run_demo on the port: `fixture` "flat", "parallax"
+    (frames rendered with illumination drift 0.08, PSNR against the true
+    orthophoto) or "real"; `gps_sigma` (meters) adds a noisy GPS fix a
+    frame."""
     os.makedirs(out_dir, exist_ok=True)
     rng = np.random.default_rng(seed)
-    ground = make_ground(rng)
-    cam = Camera(320, 240, 260.0, 260.0, 160.0, 120.0)
-    poses = survey_poses()
+    ground, world = fixture_scene(fixture, rng, seed)
+    if cam is None:
+        cam = Camera(320, 240, 260.0, 260.0, 160.0, 120.0)
+    if poses is None:
+        poses = survey_poses()
 
     cfg = Svar()
     cfg.set("FeatureDetector", "ORB")
@@ -165,10 +211,20 @@ def run_demo(out_dir=".", seed=11, n_feats=600, loop_close=True,
         from pislamfusion_tpu_torch.core.gps import LocalFrame
         local = LocalFrame(108.9, 34.0, 0.0)   # arbitrary survey origin
 
-    ground_t = torch.from_numpy(ground).to(slam.device)
+    if world is not None:
+        e2e = _e2e_scenes()
+        world_t = e2e.world_on(world, slam.device)
+
+        def render(pose, k):
+            return e2e.render_view_3d(world_t, cam, pose, k=k, illum=0.08)
+    else:
+        ground_t = torch.from_numpy(ground).to(slam.device)
+
+        def render(pose, k):
+            return render_view(ground_t, cam, pose)
     t0 = time.perf_counter()
     for i, p in enumerate(poses):
-        img = render_view(ground_t, cam, p)
+        img = render(p, i)
         gps = None
         if local is not None:
             noisy = p[:3] + rng.normal(0, gps_sigma, 3)
@@ -238,8 +294,14 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("out_dir", nargs="?", default=".")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--fixture", default="flat",
+                    choices=("flat", "parallax", "real"))
+    ap.add_argument("--seed", type=int, default=11)
+    ap.add_argument("--gps", type=float, default=None, metavar="SIGMA",
+                    help="a GPS fix a frame with this noise (m)")
     args = ap.parse_args()
-    m = run_demo(args.out_dir, device=args.device)
+    m = run_demo(args.out_dir, seed=args.seed, device=args.device,
+                 fixture=args.fixture, gps_sigma=args.gps)
     # pipeline_demo.py's bars
     ok = (m["tracked_ratio"] > 0.85 and m["ate_pct"] < 3.0
           and m["psnr"] > 14.0 and not m["fusion_error"]

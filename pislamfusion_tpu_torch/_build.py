@@ -38,6 +38,22 @@ _LIBS: dict = {}
 _LOAD_LOCK = threading.Lock()
 
 
+def kernel_wrappers() -> dict:
+    """{kernel: the wrapper that launches it and counts its launches in
+    its `launches` attribute}, for each of KERNELS."""
+    from .ops import shearwarp as sw
+    from .ops import stencil
+    from .ops.features import fastselect, flatpyr, packedpyr
+    from .ops.features import patchgather as pg
+    return {"flatpyr": flatpyr.build_flat_pyramid,
+            "patchgather": pg.gather_patches, "shearwarp": sw.warp_patch,
+            "fastselect": fastselect.fast_cell_winners,
+            "bandedstack": stencil.banded_stack,
+            "bilineargrid": pg.bilinear_grid,
+            "packedpyr": packedpyr.build_packed_pyramid,
+            "bandedsandwich": stencil.banded_sandwich}
+
+
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.isfile(cand):

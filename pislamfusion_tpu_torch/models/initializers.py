@@ -7,13 +7,14 @@ selection and cheirality reconstruction), `opt` (InitializerOpt.cpp, a
 joint SE3 + per-match inverse-depth LM from the identity), and `eigen` /
 `svdzm`, numerically `svd`. Every entry has the signature
 
-    initializer(generator, rays_a [N,2], rays_b [N,2], valid [N], sigma)
+    initializer(key, rays_a [N,2], rays_b [N,2], valid [N], sigma)
         -> TwoViewResult  (ok, T_c2w of the second camera, points in the
                            first camera's frame, inlier mask, used_h)
 
-on the rays' device; `generator` is a `torch.Generator` (the reference
-takes a JAX key). `InitializerOpt` reads its counts back to the host for
-its gates, as the reference does. Selection:
+on the rays' device; `key` is the reference's own key (`threefry.Key`,
+the tracker's, split as the reference splits its JAX key).
+`InitializerOpt` reads its counts back to the host for its gates, as the
+reference does. Selection:
 `create_initializer(cfg)` with the port's `Svar` as the config.
 """
 from __future__ import annotations
@@ -60,8 +61,8 @@ class InitializerSVD:
             if cfg else 256
         self.lo_topk = estimator_lo_topk(cfg)
 
-    def __call__(self, generator, ra, rb, valid, sigma: float = 0.004):
-        return init2view.initialize_two_view(generator, ra, rb, valid,
+    def __call__(self, key, ra, rb, valid, sigma: float = 0.004):
+        return init2view.initialize_two_view(key, ra, rb, valid,
                                              sigma=sigma, iters=self.iters,
                                              lo_topk=self.lo_topk)
 
@@ -82,12 +83,12 @@ class InitializerOpt:
     0.03 after the solve (:69-73), depth in (1/20, 10) with squared
     reprojection < 1e-5 and in front of the second camera (:79-88), and
     > 50 points that are over half of the valid matches (:90-95). The
-    generator is not used: the solve draws nothing."""
+    key is not used: the solve draws nothing."""
 
     def __init__(self, cfg=None):
         self.iters = cfg.get_int("Initializer.OptIters", 24) if cfg else 24
 
-    def __call__(self, generator, ra, rb, valid, sigma: float = 0.004):
+    def __call__(self, key, ra, rb, valid, sigma: float = 0.004):
         dev = ra.device
         ra = ra.to(torch.float32)
         rb = rb.to(torch.float32)

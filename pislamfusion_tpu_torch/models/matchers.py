@@ -7,11 +7,12 @@ DIYSLAM's two-view initialization and relocalization call whichever is
 configured. Each entry wraps ops on the matcher's device with the uniform
 signature
 
-    matcher(generator, frame_a, frame_b) -> (idx [Na] int32, ok [Na] bool)
+    matcher(key, frame_a, frame_b) -> (idx [Na] int32, ok [Na] bool)
 
 where idx maps a-keypoints to b-keypoints (tensors on the matcher's
-device) and `generator` is a `torch.Generator` for the matchers that draw
-RANSAC samples (multiH, bowH, BFMultiH; the others ignore it).
+device) and `key` is the reference's own key (`threefry.Key`, the
+tracker's), which the matchers that draw RANSAC samples (multiH, bowH,
+BFMultiH) split as the reference does; the others ignore it.
 
 Selection: `MATCHERS.create(cfg.get_string("Matcher", "multiH"), cfg,
 device=...)`; `device` None means `cuda`.
@@ -47,7 +48,7 @@ class MatcherBF:
         self.device = resolve_device(device)
         self.ratio = cfg.get_double("Matcher.Ratio", 0.8) if cfg else 0.8
 
-    def __call__(self, generator, fa, fb):
+    def __call__(self, key, fa, fb):
         desc_a, valid_a, _, ang_a = _arrays(fa, self.device)
         desc_b, valid_b, _, ang_b = _arrays(fb, self.device)
         idx, ok = matching.match_descriptors(
@@ -118,7 +119,7 @@ class MatcherBoW:
             self._nids[frame.id] = nid
         return nid
 
-    def __call__(self, generator, fa, fb):
+    def __call__(self, key, fa, fb):
         vocab = self._vocabulary(getattr(fa, "desc_kind", "orb"))
         desc_a, valid_a, _, ang_a = _arrays(fa, self.device)
         desc_b, valid_b, _, ang_b = _arrays(fb, self.device)
@@ -171,11 +172,11 @@ class MatcherMultiH:
         self.n_h = cfg.get_int("Matcher.MaxHomographies", 4) if cfg else 4
         self.window = cfg.get_double("Matcher.Window", 8.0) if cfg else 8.0
 
-    def __call__(self, generator, fa, fb):
+    def __call__(self, key, fa, fb):
         desc_a, valid_a, xy_a, ang_a = _arrays(fa, self.device)
         desc_b, valid_b, xy_b, ang_b = _arrays(fb, self.device)
         idx, ok, _ = multih.match_multih(
-            generator, desc_a, valid_a, xy_a, desc_b, valid_b, xy_b,
+            key, desc_a, valid_a, xy_a, desc_b, valid_b, xy_b,
             kind=fa.desc_kind, n_h=self.n_h, window=self.window)
         ok = matching.rotation_consistency_mask(ang_a, ang_b, idx, ok)
         return idx, ok
@@ -198,7 +199,7 @@ class MatcherBoWH(MatcherBoW):
         self.n_h = cfg.get_int("Matcher.MaxHomographies", 4) if cfg else 4
         self.window = cfg.get_double("Matcher.Window", 8.0) if cfg else 8.0
 
-    def __call__(self, generator, fa, fb):
+    def __call__(self, key, fa, fb):
         vocab = self._vocabulary(getattr(fa, "desc_kind", "orb"))
         desc_a, valid_a, xy_a, ang_a = _arrays(fa, self.device)
         desc_b, valid_b, xy_b, ang_b = _arrays(fb, self.device)
@@ -213,7 +214,7 @@ class MatcherBoWH(MatcherBoW):
                            "base match unbucketed (multiH)")
             self._warned = True
         idx, ok, _ = multih.match_multih(
-            generator, desc_a, valid_a, xy_a, desc_b, valid_b, xy_b,
+            key, desc_a, valid_a, xy_a, desc_b, valid_b, xy_b,
             kind=fa.desc_kind, n_h=self.n_h, window=self.window,
             base_mask=base_mask)
         ok = matching.rotation_consistency_mask(ang_a, ang_b, idx, ok)
@@ -233,11 +234,11 @@ class MatcherBFMultiH:
         self.n_h = cfg.get_int("Matcher.MaxHomographies", 5) if cfg else 5
         self.window = cfg.get_double("Matcher.Window", 8.0) if cfg else 8.0
 
-    def __call__(self, generator, fa, fb):
+    def __call__(self, key, fa, fb):
         desc_a, valid_a, xy_a, ang_a = _arrays(fa, self.device)
         desc_b, valid_b, xy_b, ang_b = _arrays(fb, self.device)
         idx, ok, _ = multih.match_bf_multih(
-            generator, desc_a, valid_a, xy_a, ang_a,
+            key, desc_a, valid_a, xy_a, ang_a,
             desc_b, valid_b, xy_b, ang_b,
             kind=fa.desc_kind, n_h=self.n_h,
             window=max(self.window, fa.camera.width / 64.0

@@ -15,8 +15,10 @@ distance matrices, windowed matching, pose LM, PnP RANSAC, two-view init)
 runs as tensor ops on the tracker's device (`device`, None meaning `cuda`).
 The fused per-frame path (`_track_fused`) enqueues the whole frame's
 matching and both pose LMs and reads ONE packed buffer back. RANSAC samples
-come from a CPU `torch.Generator` seeded `SLAM.Seed`, as the reference's
-key is, so a run on the card and one on the CPU take the same hypotheses.
+come from the reference's own key, `PRNGKey(SLAM.Seed)` (`threefry.Key`, on
+the CPU), split at the reference's call sites (`_next_key`), so the port
+draws the JAX package's hypotheses, and a run on the card and one on the
+CPU the same ones.
 
 The online mode's `SLAM.TrackChain` tracks K queued frames at a time
 (`track_chain`: one upload of the K raw frames from pinned memory, K
@@ -38,7 +40,7 @@ from ..core import glog
 from ..core.device import resolve_device
 from ..core.registry import RELOCALIZERS, TRACKERS
 from ..core.timer import timer
-from ..ops import ba, matching, ransac
+from ..ops import ba, matching, ransac, threefry
 from ..utils import host_se3 as hse3
 from ..utils.padding import pad_to
 from . import pipeline
@@ -70,8 +72,7 @@ class Tracker:
         self.last_frame: Optional[Frame] = None
         self.motion = np.array([0, 0, 0, 0, 0, 0, 1.0], np.float32)
         self.lost_count = 0
-        self.generator = torch.Generator().manual_seed(
-            cfg.get_int("SLAM.Seed", 0))
+        self._key = threefry.Key(cfg.get_int("SLAM.Seed", 0))
         self.max_overlap = cfg.get_double("SLAM.MaxOverlap", 0.95)
         self.loop_detector = None   # wired by SLAM for relocalization
         self.matcher = None         # lazy MATCHERS.create (Matcher?= cfg)
@@ -101,6 +102,12 @@ class Tracker:
         if self.device.type != "cuda":
             return t.to(self.device)
         return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _next_key(self):
+        """The reference's `_next_key` (tracker.py:76-78): split the key,
+        keep the first half, draw from the second."""
+        self._key, k = self._key.split()
+        return k
 
     def on_map_transformed(self, S: np.ndarray):
         """The mapper applied a global SIM3 (GPS fit): frame objects are
@@ -303,7 +310,7 @@ class Tracker:
             self.ref_frame = frame
             return False
         ref = self.ref_frame
-        idx, ok = self._get_matcher()(self.generator, ref, frame)
+        idx, ok = self._get_matcher()(self._next_key(), ref, frame)
         idxn = idx.cpu().numpy()
         okn = ok.cpu().numpy()
         n_match = int(okn.sum())
@@ -314,7 +321,7 @@ class Tracker:
         rb = frame.rays[np.where(okn, idxn, 0)][:, :2]
         sigma = 1.0 / ref.camera.fx
         res = self._get_initializer()(
-            self.generator, self._t(ra), self._t(rb), self._t(okn),
+            self._next_key(), self._t(ra), self._t(rb), self._t(okn),
             sigma=max(sigma, 1e-4))
         if not bool(res.ok):
             return False
@@ -589,8 +596,20 @@ class Tracker:
             return False
         return self._solve_pose(frame, T_pred, pos, has, idxn, okn, last)
 
-    def _solve_pose(self, frame, T_init_c2w, pos, has, idxn, okn, src_frame):
-        """Pose-only LM from (src kp -> cur kp) matches; assigns kp2mp."""
+    def _solve_pose(self, frame, T_init_c2w, pos, has, idxn, okn, src_frame,
+                    inliers=None):
+        """Pose-only LM from (src kp -> cur kp) matches; assigns kp2mp.
+
+        `inliers` [n_kp] bool, the current frame's PnP-RANSAC inliers,
+        restricts the fit to them: every fit that starts from a PnP pose
+        passes them (`_track_ref_kf`, which relocalizes, and
+        `TrackerRansacPnP`). The reference fits every match there
+        (tracker.py:633-662): from a PnP pose with 50 of 60 inliers its
+        Huber LM walks toward the outliers and ends with fewer than
+        SLAM.MinTrackInliers, so relocalization fails or succeeds by
+        chance (ROADMAP queue 3)."""
+        if inliers is not None:
+            okn = okn & inliers[np.where(okn, idxn, 0)]
         n = frame.n_kp
         p3d = np.zeros((n, 3), np.float32)
         w = np.zeros(n, np.float32)
@@ -688,7 +707,7 @@ class Tracker:
             p3d[idxn[sel]] = pos[sel]
             w[idxn[sel]] = True
             src_of_cur[idxn[sel]] = sel
-            res = ransac.find_pnp(self.generator, self._t(p3d),
+            res = ransac.find_pnp(self._next_key(), self._t(p3d),
                                   self._t(frame.rays[:, :2]), self._t(w),
                                   threshold=3.0 / frame.camera.fx)
             if not bool(res.ok):
@@ -702,7 +721,8 @@ class Tracker:
                     return True
                 continue
             T_c2w = hse3.se3_inv(res.model.cpu().numpy())
-            if self._solve_pose(frame, T_c2w, pos, has, idxn, okn, kf):
+            if self._solve_pose(frame, T_c2w, pos, has, idxn, okn, kf,
+                                inliers=res.inliers.cpu().numpy()):
                 self.ref_kf_id = kf.id
                 self.invalidate_local_stage()
                 return True
@@ -928,7 +948,7 @@ class TrackerDemo(Tracker):
         """trackRefKeyframe matches with the FULL configured Matcher
         (match4initialize, TrackerDemo.cpp:462) — denser than opt's
         ratio-BF, one multi-H RANSAC heavier."""
-        return self._get_matcher()(self.generator, kf, frame)
+        return self._get_matcher()(self._next_key(), kf, frame)
 
     def _track_ref_kf_epipolar(self, frame: Frame, kf: Frame) -> bool:
         return False   # TrackerDemo has no inverse-depth 2D-2D fallback
@@ -973,13 +993,15 @@ class TrackerRansacPnP(Tracker):
         val = np.zeros(n, bool)
         p3d[idxn[sel]] = pos[sel]
         val[idxn[sel]] = True
-        res = ransac.find_pnp(self.generator, self._t(p3d),
+        res = ransac.find_pnp(self._next_key(), self._t(p3d),
                               self._t(frame.rays[:, :2]), self._t(val))
         if not bool(res.ok):
             return False
         T_c2w = hse3.se3_inv(res.model.cpu().numpy()).astype(np.float32)
-        # shared pose-LM refine + kp2mp assignment from the RANSAC pose
-        return self._solve_pose(frame, T_c2w, pos, has, idxn, okn, last)
+        # shared pose-LM refine + kp2mp assignment from the RANSAC pose, on
+        # its inliers
+        return self._solve_pose(frame, T_c2w, pos, has, idxn, okn, last,
+                                inliers=res.inliers.cpu().numpy())
 
 
 @TRACKERS.register("planar")
@@ -1058,7 +1080,7 @@ class TrackerPlanar(Tracker):
         ref = self._pair_ref
         self._access += 1
         # match4initialize with the full configured Matcher (:430)
-        idx, okm = self._get_matcher()(self.generator, ref, frame)
+        idx, okm = self._get_matcher()(self._next_key(), ref, frame)
         idxn, okn = idx.cpu().numpy(), okm.cpu().numpy()
         n_match = int(okn.sum())
         lg << f",match {n_match}"
@@ -1068,7 +1090,7 @@ class TrackerPlanar(Tracker):
         ra = ref.rays[:, :2]
         rb = frame.rays[np.where(okn, idxn, 0)][:, :2]
         res = self._get_initializer()(
-            self.generator, self._t(ra), self._t(rb), self._t(okn),
+            self._next_key(), self._t(ra), self._t(rb), self._t(okn),
             sigma=max(1.0 / ref.camera.fx, 1e-4))
         if not bool(res.ok):   # :478 `_initializer->initialize` failed
             self._pair_ref = frame
@@ -1222,7 +1244,7 @@ class TrackerInitTest(Tracker):
         if ref is None or ref.n_kp == 0 or frame.n_kp == 0:
             return False
         self.attempts += 1
-        idx, ok = self._get_matcher()(self.generator, ref, frame)
+        idx, ok = self._get_matcher()(self._next_key(), ref, frame)
         idxn, okn = idx.cpu().numpy(), ok.cpu().numpy()
         n_match = int(okn.sum())
         # match4initialize acceptance gate (:436): at least 100 matches or
@@ -1232,7 +1254,7 @@ class TrackerInitTest(Tracker):
         ra = ref.rays[:, :2]
         rb = frame.rays[np.where(okn, idxn, 0)][:, :2]
         res = self._get_initializer()(
-            self.generator, self._t(ra), self._t(rb), self._t(okn),
+            self._next_key(), self._t(ra), self._t(rb), self._t(okn),
             sigma=max(1.0 / ref.camera.fx, 1e-4))
         if not bool(res.ok):
             return False
@@ -1289,7 +1311,7 @@ class TrackerLoopTest(Tracker):
                 self.loop_detector.insert(frame)
             return True
         last = self._local_kfs[-1]
-        _, ok = self._get_matcher()(self.generator, last, frame)
+        _, ok = self._get_matcher()(self._next_key(), last, frame)
         n_match = int(ok.sum())
         if n_match < 200 and frame.timestamp - last.timestamp > 0.5:
             self.n_keyframes += 1
@@ -1310,7 +1332,7 @@ class TrackerLoopTest(Tracker):
                 ref = self.map.frame(fid)
                 if ref is None:
                     continue
-                _, o2 = self._get_matcher()(self.generator, ref, frame)
+                _, o2 = self._get_matcher()(self._next_key(), ref, frame)
                 if int(o2.sum()) < 50:   # :150-152
                     continue
                 self.loops_found.append((fid, frame.id))

@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import lie, ransac
+from . import lie, ransac, threefry
 
 
 class TwoViewResult(NamedTuple):
@@ -164,14 +164,16 @@ def _initialize_two_view_from_samples(idx_h, idx_f, ra_xy, rb_xy, valid,
                          mask=good[best], used_h=use_h)
 
 
-def initialize_two_view(generator, ra_xy, rb_xy, valid, sigma: float = 0.004,
-                        iters: int = 256, lo_topk: int = 1):
+def initialize_two_view(key: threefry.Key, ra_xy, rb_xy, valid,
+                        sigma: float = 0.004, iters: int = 256,
+                        lo_topk: int = 1):
     """Full two-view bootstrap. ra_xy, rb_xy: [N, 2] normalized coords of
     matched keypoints in frames a/b; sigma: measurement noise in
     normalized units (~1 px / f). Returns TwoViewResult; the translation
     has unit norm (the monocular scale gauge)."""
     n = ra_xy.shape[0]
-    idx_h = ransac.sample_indices(generator, n, valid, iters, 4)
-    idx_f = ransac.sample_indices(generator, n, valid, iters, 8)
+    k_h, k_f = key.split()              # as the reference splits its key
+    idx_h = ransac.sample_indices(k_h, n, valid, iters, 4)
+    idx_f = ransac.sample_indices(k_f, n, valid, iters, 8)
     return _initialize_two_view_from_samples(idx_h, idx_f, ra_xy, rb_xy,
                                              valid, sigma, lo_topk)

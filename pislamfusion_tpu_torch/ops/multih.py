@@ -7,7 +7,8 @@ keypoints re-matched inside windows around each homography's prediction.
 
 Randomness: each homography RANSAC samples over the matches that earlier
 planes left, so its indices depend on the data. The public functions take
-a `torch.Generator`; their `_..._from_noise` variants take the Gumbel
+the reference's key (`threefry.Key`) and split it as the reference splits
+its JAX key; their `_..._from_noise` variants take the Gumbel
 noise each RANSAC draws ([n_h, iters, Na]; `match_bf_multih` also the F
 sweep's [iters, Na]), from which every sample is the top-k of the noise
 over the points still valid, as the reference's `_sample_indices` does.
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from . import matching, ransac
+from . import matching, ransac, threefry
 
 
 def _apply_h(H, xy):
@@ -67,8 +68,14 @@ def _match_multih_from_noise(noise, desc_a, valid_a, xy_a, desc_b, valid_b,
     return torch.where(ok, idx, idx2), ok | ok2, n_planes
 
 
-def match_multih(generator, desc_a, valid_a, xy_a, desc_b, valid_b, xy_b,
-                 kind: str = "orb", n_h: int = 4, window: float = 8.0,
+def _plane_noise(key: threefry.Key, n_h, iters, n):
+    """Gumbel noise [n_h, iters, n] for n_h homography RANSACs: one split
+    key a plane, as the reference draws."""
+    return torch.stack([k.gumbel((iters, n)) for k in key.split(n_h)])
+
+
+def match_multih(key: threefry.Key, desc_a, valid_a, xy_a, desc_b, valid_b,
+                 xy_b, kind: str = "orb", n_h: int = 4, window: float = 8.0,
                  max_dist: float | None = None, h_threshold: float = 3.0,
                  ransac_iters: int = 192, ratio: float = 0.8,
                  base_mask=None):
@@ -78,7 +85,7 @@ def match_multih(generator, desc_a, valid_a, xy_a, desc_b, valid_b, xy_b,
     absolute threshold alone, findMatchWindow :129-168). base_mask [Na, Nb]
     (optional) restricts the base match's candidates (a vocabulary
     node-equality mask gives the reference's `bowH` matcher)."""
-    noise = ransac.gumbel(generator, (n_h, ransac_iters, xy_a.shape[0]))
+    noise = _plane_noise(key, n_h, ransac_iters, xy_a.shape[0])
     return _match_multih_from_noise(noise, desc_a, valid_a, xy_a, desc_b,
                                     valid_b, xy_b, kind, window, max_dist,
                                     h_threshold, ratio, base_mask)
@@ -143,7 +150,7 @@ def _match_bf_multih_from_noise(noise_f, noise_h, desc_a, valid_a, xy_a,
     return torch.where(ok, idx, idx2), ok | ok2, n_planes
 
 
-def match_bf_multih(generator, desc_a, valid_a, xy_a, angle_a,
+def match_bf_multih(key: threefry.Key, desc_a, valid_a, xy_a, angle_a,
                     desc_b, valid_b, xy_b, angle_b,
                     kind: str = "orb", n_h: int = 5, window: float = 8.0,
                     max_dist: float | None = None, bins: int = 30,
@@ -156,8 +163,9 @@ def match_bf_multih(generator, desc_a, valid_a, xy_a, angle_a,
     prediction lies nearest F's epipolar line. Returns (idx [Na], ok [Na],
     n_planes)."""
     n = xy_a.shape[0]
-    noise_f = ransac.gumbel(generator, (ransac_iters, n))
-    noise_h = ransac.gumbel(generator, (n_h, ransac_iters, n))
+    k_f, k_h = key.split()              # as the reference splits its key
+    noise_f = k_f.gumbel((ransac_iters, n))
+    noise_h = _plane_noise(k_h, n_h, ransac_iters, n)
     return _match_bf_multih_from_noise(
         noise_f, noise_h, desc_a, valid_a, xy_a, angle_a, desc_b, valid_b,
         xy_b, angle_b, kind, window, max_dist, bins, keep, f_threshold,

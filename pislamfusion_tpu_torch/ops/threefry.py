@@ -52,10 +52,10 @@ class Key:
         lo = torch.arange(n, dtype=torch.int64)
         return threefry2x32(*self.words, torch.zeros_like(lo), lo)
 
-    def split(self):
-        """The two keys of jax.random.split(key)."""
-        b1, b2 = self._hash(2)
-        return (Key(words=(b1[0], b2[0])), Key(words=(b1[1], b2[1])))
+    def split(self, num: int = 2):
+        """The `num` keys of jax.random.split(key, num)."""
+        b1, b2 = self._hash(num)
+        return tuple(Key(words=(b1[i], b2[i])) for i in range(num))
 
     def gumbel(self, shape) -> torch.Tensor:
         """jax.random.gumbel(key, shape): float32 on the CPU."""

@@ -64,7 +64,7 @@ def main(argv) -> int:
           f"CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     cases, total = e2e.run_cases(names, torch.device(device),
-                                 cs.kernel_wrappers(), card)
+                                 _build.kernel_wrappers(), card)
     print("e2e (phase 2h) launches over the cases: " + ", ".join(
         f"{k} {v}" for k, v in total.items())
         + f"; {time.perf_counter() - t0:.1f} s")

@@ -5,10 +5,11 @@ Free of JAX: numpy, PIL and the port's own operations only, so that
 card, and tests/test_torch_e2e.py runs its CPU rows.
 
 Scenes. The counterparts of tests/synth_survey.py's `make_world`,
-`render_view_3d`, `exposure_field` and `degrade_frame`, and of the scene
-builders of tests/test_loopclose.py (`circuit`), tests/test_real_texture.py
-(`real_ground`, `real_circuit_poses`) and tests/test_real_sequence.py
-(`sequence_ground`, `sequence_trajectory`, `sequence_exposure`). Each draws
+`true_ortho`, `render_view_3d`, `exposure_field` and `degrade_frame`, and
+of the scene builders of tests/test_loopclose.py (`circuit`),
+tests/test_real_texture.py (`real_ground`, `real_circuit_poses`) and
+tests/test_real_sequence.py (`sequence_ground`, `sequence_trajectory`,
+`sequence_exposure`). Each draws
 from the same numpy `rng` as its original; `chip_smoke.survey_ground`,
 `survey_poses` and `survey_view` are the counterparts of `make_ground`,
 `lawnmower` and `render_view`. tests/test_torch_e2e.py holds each one equal
@@ -75,6 +76,16 @@ def make_world(rng, n=1024, rects=700, n_slabs=14, heights=(4.0, 8.0),
         rgba[sy:sy + sh, sx:sx + sw, :3] = roof
         rgba[sy:sy + sh, sx:sx + sw, 3] = 1.0
     return {"ground": ground, "layers": layers}
+
+
+def true_ortho(world):
+    """tests/synth_survey.py's true_ortho: the ground with every slab
+    pasted at its true footprint (the nadir view from infinity), numpy."""
+    img = world["ground"].copy()
+    for _, rgba in world["layers"]:
+        a = rgba[..., 3:4]
+        img = img * (1.0 - a) + rgba[..., :3] * a
+    return img
 
 
 def world_on(world, device):

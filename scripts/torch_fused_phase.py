@@ -81,7 +81,7 @@ def main() -> int:
     _build.build_all()
     print(f"built in {time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda")
-    wrappers = cs.kernel_wrappers()
+    wrappers = _build.kernel_wrappers()
     t0 = time.perf_counter()
     cs.run_fused_phase(dev, wrappers, card)
     print(f"phase 2e: {time.perf_counter() - t0:.1f} s")

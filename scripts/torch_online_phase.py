@@ -7,7 +7,8 @@ Run from the repository root on the card's machine:
 
 It builds the port's kernels, renders the first 24 frames of bench.py's
 1080p strip, then runs phase 2f (bench.py's SLAM pass on the port:
-ORB-1000 online over 47 frames out and back in the four (TrackChain,
+ORB-1000 online over frames 0-11 out and back (23 frames; bench.py's
+pass is 47, chip_smoke.ONLINE_FRAMES) in the four (TrackChain,
 TrackScale) configurations, one round each; SIFT-1000 chained
 over frames 0-17; the synchronising calls of one chain; and, unless
 --no-app, `app.main(["Act=SLAM", ...])` online with TrackChain 8 over
@@ -36,7 +37,7 @@ import chip_smoke as cs  # noqa: E402
 def profile_online(frames, poses, fx, dev, wrappers, chain=8, scale=1):
     """One ORB online call of phase 2f under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
-    k = min(len(poses), 24)
+    k = min(len(poses), cs.ONLINE_FRAMES)
     order = cs.online_order(k)
     gray = cs.bench_gray(frames[:k].cpu().numpy())[order]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -84,7 +85,7 @@ def main() -> int:
     _build.build_all()
     print(f"built in {time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda")
-    wrappers = cs.kernel_wrappers()
+    wrappers = _build.kernel_wrappers()
     H, W, fx = 1080, 1920, 1200.0
     frames, poses = cs.render_strip(24, H, W, fx, 0.12, 6144, dev)
     t0 = time.perf_counter()

@@ -79,7 +79,7 @@ def main() -> int:
     _build.build_all()
     print(f"built in {time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda")
-    wrappers = cs.kernel_wrappers()
+    wrappers = _build.kernel_wrappers()
     H, W, fx = 1080, 1920, 1200.0
     frames, poses = cs.render_strip(36, H, W, fx, 0.12, 6144, dev)
     t0 = time.perf_counter()

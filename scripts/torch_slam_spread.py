@@ -58,7 +58,7 @@ def step(state, frame, i, threads):
     torch.set_num_threads(threads)
     s = create_slam(cs.slam_survey_cfg(), Camera(*CAM), device="cpu")
     convert.load_worldmap_state(s, state)
-    s.tracker.generator.set_state(state["generators"][0])
+    s.tracker._key = state["generators"][0]
     s.mapper.generator.set_state(state["generators"][1])
     if state["plane_tries"] is not None:
         s.mapper._plane_tries = state["plane_tries"]
@@ -86,7 +86,7 @@ def main() -> int:
         def snapshot(slam, i):
             if threads == 8 and i in cs.SLAM_STEP_FRAMES:
                 st = convert.worldmap_to_numpy(slam)
-                st["generators"] = (slam.tracker.generator.get_state(),
+                st["generators"] = (slam.tracker._key,
                                     slam.mapper.generator.get_state())
                 st["plane_tries"] = getattr(slam.mapper, "_plane_tries",
                                             None)

@@ -312,8 +312,9 @@ GEOMETRY_MODULES = (
 def test_port_imports_neither_jax_nor_the_reference():
     """In a fresh interpreter (this one has JAX loaded by conftest): every
     module of the port, chip_smoke.py, the end-to-end scenes and phase
-    script (scripts/torch_e2e_scenes.py, scripts/torch_e2e_phase.py) and
-    the pipeline demo the real-sequence case reads its PSNR from."""
+    script (scripts/torch_e2e_scenes.py, scripts/torch_e2e_phase.py), the
+    pipeline demo the real-sequence case reads its PSNR from, the ablation
+    harness and the two vocabulary trainers."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import pislamfusion_tpu_torch as p\n"
@@ -321,7 +322,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "    importlib.import_module(m.name)\n"
         "sys.path[:0] = ['scripts', 'examples']\n"
         "import chip_smoke, torch_e2e_scenes, torch_e2e_phase\n"
-        "import torch_pipeline_demo\n"
+        "import torch_pipeline_demo, torch_batch_evaluate\n"
+        "import torch_train_default_vocab, torch_train_sift_vocab\n"
         f"missing = [m for m in {GEOMETRY_MODULES!r}\n"
         "           if 'pislamfusion_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"

@@ -498,8 +498,29 @@ def _files(root):
     return out
 
 
+@pytest.fixture
+def jax_native_png(monkeypatch):
+    """The JAX package's native PNG writer loaded in this process wherever
+    the port's is, so that both packages write with one encoder.
+
+    Under pytest-xdist every worker imports tests/test_native_io.py, whose
+    `skipif` loads the JAX package's library at collection: the workers
+    build native/libpsfimageio.so in place at once
+    (pislamfusion_tpu/io/native_io.py:27-39), and a worker that opens it
+    half-written ("file too short") writes through PIL for the rest of
+    its life, other bytes (and no PNG at all to a `.tmp` name, as
+    `viz.Visualizer._atomic` writes). By the time a test runs the library
+    is whole: load it again."""
+    from pislamfusion_tpu.io import native_io as jnative
+    from pislamfusion_tpu_torch.io import native_io as tnative
+    if jnative._lib is None and tnative.available():
+        monkeypatch.setattr(jnative, "_build_failed", False)
+        assert jnative.get_lib() is not None
+    assert (jnative._lib is not None) == tnative.available()
+
+
 @pytest.mark.parametrize("datum", ["wgs84", "gcj02"])
-def test_geo_tiles_byte_equal(datum, tmp_path):
+def test_geo_tiles_byte_equal(datum, tmp_path, jax_native_png):
     from pislamfusion_tpu.io import exporters as jex
     from pislamfusion_tpu_torch.io import exporters as tex
     eng = StubEngine(np.random.default_rng(9))
@@ -604,7 +625,7 @@ def test_map2dfusion_plane_fit_matches_reference(tmp_path):
     assert all(fj[k] == ft[k] for k in fj if k != "config.cfg")
 
 
-def test_viz_pngs_byte_equal(tmp_path, monkeypatch):
+def test_viz_pngs_byte_equal(tmp_path, monkeypatch, jax_native_png):
     """The port writes PNGs with the JAX package's own zlib encoder (its
     last resort after the native writer and PIL): byte-equal to it, and
     equal in pixels to what the JAX package writes by default."""

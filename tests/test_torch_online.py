@@ -43,12 +43,14 @@ the same tracked count, keyframes and geo ATE. The JAX package runs the
 same schedule on the same frames in a subprocess
 (`torch_port_reference.py online-starved`: its threads may crash in
 concurrent XLA compiles, and a crash must not take a test worker with
-it), and the port is held to its tracked count within 1 frame and its
-keyframe geo ATE within 0.5 m. Both packages lose the track at the same
-frame once the mapper is 3 frames or more behind (ROADMAP queue 3, known
-faults in the reference): the test holds the port to what the JAX package
-does, not to a bar.
+it). With the JAX package's relocalization fit (every match) the port
+is held to its tracked count within 1 frame and its keyframe geo ATE
+within 0.5 m; with its own (the PnP inliers) to at least its tracked
+count less 1 and at most its geo ATE plus 0.5 m. Both packages lose the
+track once the mapper is 3 frames or more behind (ROADMAP queue 3, known
+faults in the reference).
 """
+import contextlib
 import importlib
 import json
 import os
@@ -67,8 +69,9 @@ from pislamfusion_tpu_torch.models import pipeline as tp
 from pislamfusion_tpu_torch.models.slam import create_slam
 from pislamfusion_tpu_torch.utils import host_se3 as hse3
 from torch_port_reference import (SLAM_CAM, STARVED_CFG, STARVED_ORIGIN,
-                                  chain_scene, jax_chain_capture,
-                                  lagged_mapper, once_per_session,
+                                  StartedOncePerSession, chain_scene,
+                                  jax_chain_capture, lagged_mapper,
+                                  once_per_session, reference_pose_fit,
                                   slam_survey_frames, starved_run,
                                   starved_scene,
                                   torch_one_thread)  # noqa: F401
@@ -305,50 +308,80 @@ def _recording(track, frames):
 STARVED_LAGS = (2, 4)
 
 
-def _jax_starved():
+def _jax_starved_start():
+    """The JAX package's runs at STARVED_LAGS (tests/torch_port_reference.py
+    online-starved LAG ...), one subprocess, started so that it runs
+    beside the port's runs."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [repo, os.path.join(repo, "tests")]))
-    r = subprocess.run(
+    return subprocess.Popen(
         [sys.executable, os.path.join(repo, "tests",
                                       "torch_port_reference.py"),
          "online-starved", *map(str, STARVED_LAGS)], cwd=repo, env=env,
-        capture_output=True, text=True, timeout=900)
-    assert r.returncode == 0, r.stderr[-4000:]
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _jax_starved_read(proc):
+    try:
+        out, err = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err[-4000:]
     return {int(k): v for k, v in json.loads(
-        r.stdout.strip().splitlines()[-1]).items()}
+        out.strip().splitlines()[-1]).items()}
 
 
 @pytest.fixture(scope="module")
 def jax_starved(tmp_path_factory, worker_id):
-    return once_per_session("torch_jax_starved", _jax_starved,
-                            tmp_path_factory, worker_id)
+    ref = StartedOncePerSession("torch_jax_starved", _jax_starved_start,
+                                _jax_starved_read, tmp_path_factory,
+                                worker_id)
+    yield ref
+    ref.close()
 
 
 @pytest.mark.parametrize("lag", STARVED_LAGS)
 def test_online_starved_mapper_matches_reference(jax_starved, lag):
     """tests/test_soak.py:91-121's online run (40 frames, loop closing,
-    GPS) with the mapper held `lag` frames behind the tracker: three port
-    runs equal, and the JAX package's tracked count (within 1 frame) and
-    keyframe geo ATE (within 0.5 m) under the same schedule."""
+    GPS) with the mapper held `lag` frames behind the tracker, under the
+    JAX package's schedule (its runs in one subprocess, beside the
+    port's). The track is lost and relocalized here, where the port fits
+    the PnP inliers and the JAX package every match (ROADMAP queue 3), so
+    the port runs three times with each fit:
+    - with the JAX package's fit (`reference_pose_fit`): three runs equal,
+      its tracked count within 1 frame and its keyframe geo ATE within
+      0.5 m;
+    - with its own: three runs equal, tracked at least the JAX package's
+      count less 1 and keyframe geo ATE at most the JAX package's plus
+      0.5 m."""
     from pislamfusion_tpu_torch.core.gps import LocalFrame
     from pislamfusion_tpu_torch.models import slam as ts
+    from pislamfusion_tpu_torch.models import tracker as ttracker
     messenger = importlib.import_module(
         "pislamfusion_tpu_torch.core.messenger")
     scene = starved_scene()
-    runs = []
-    for _ in range(3):
-        cfg = chip_smoke.slam_survey_cfg(**dict(STARVED_CFG))
-        with lagged_mapper(messenger, ts.SLAM, lag):
-            slam = create_slam(cfg, Camera(*SLAM_CAM), device="cpu")
-            r = starved_run(slam, scene, LocalFrame(*STARVED_ORIGIN),
-                            lambda: slam.finish(timeout=JOIN_S))
-        assert r["finished"] and not slam._worker.is_alive()
-        assert r["errors"] == 0 and slam.mapper.worker_errors == 0
-        assert r["total"] == len(scene[0])
-        runs.append(r)
-    assert runs[1] == runs[0] and runs[2] == runs[0], runs
-    ref = jax_starved[lag]
+    runs = {"reference fit": [], "port fit": []}
+    for fit, rs in runs.items():
+        for _ in range(3):
+            cfg = chip_smoke.slam_survey_cfg(**dict(STARVED_CFG))
+            with lagged_mapper(messenger, ts.SLAM, lag), (
+                    reference_pose_fit(ttracker.Tracker)
+                    if fit == "reference fit" else contextlib.nullcontext()):
+                slam = create_slam(cfg, Camera(*SLAM_CAM), device="cpu")
+                r = starved_run(slam, scene, LocalFrame(*STARVED_ORIGIN),
+                                lambda: slam.finish(timeout=JOIN_S))
+            assert r["finished"] and not slam._worker.is_alive()
+            assert r["errors"] == 0 and slam.mapper.worker_errors == 0
+            assert r["total"] == len(scene[0])
+            rs.append(r)
+        assert rs[1] == rs[0] and rs[2] == rs[0], (fit, rs)
+    ref = jax_starved.get()[lag]
     assert ref["finished"] and ref["errors"] == 0, ref
-    assert abs(runs[0]["tracked"] - ref["tracked"]) <= 1, (runs[0], ref)
-    assert abs(runs[0]["geo_ate"] - ref["geo_ate"]) <= 0.5, (runs[0], ref)
+    same, own = runs["reference fit"][0], runs["port fit"][0]
+    assert abs(same["tracked"] - ref["tracked"]) <= 1, (same, ref)
+    assert abs(same["geo_ate"] - ref["geo_ate"]) <= 0.5, (same, ref)
+    assert own["tracked"] >= ref["tracked"] - 1, (own, ref)
+    assert own["geo_ate"] <= ref["geo_ate"] + 0.5, (own, ref)

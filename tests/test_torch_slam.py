@@ -388,7 +388,7 @@ def test_slam_modules_and_registry_names():
     assert type(slam.tracker) is tracker.Tracker
     assert type(slam.mapper) is tmapper.Mapper
     assert type(slam.loop_closer) is loopclose.LoopCloserSE3Graph
-    assert slam.tracker.generator.initial_seed() == 0
+    assert slam.tracker._key.words == (0, 0)   # PRNGKey(SLAM.Seed 0)
     assert slam.mapper.generator.initial_seed() == 1
     assert slam.loop_closer._key.words == (0, 7)   # PRNGKey(7)
     for reg, names in ((FEATURE_DETECTORS, ("ORB", "cvORB", "liu_ORB",
@@ -420,9 +420,10 @@ def test_slam_modules_and_registry_names():
 def test_ransac_pnp_last_frame_step_matches_reference(capture, monkeypatch):
     """TrackerRansacPnP._track_last_frame, from the JAX run's state before
     frame 3, of a view 1 m on from the last frame (its JAX features), on
-    the JAX package's PnP samples: the same decision,
-    the pose within 1e-4 of the translation scale, inliers within 2 and
-    the bindings equal on 99 % of the keypoints."""
+    the JAX package's PnP samples and with the JAX pose LM on the PnP
+    inliers, as the port fits them: the same decision, the pose within
+    1e-4 of the translation scale, inliers within 2 and the bindings equal
+    on 99 % of the keypoints."""
     from pislamfusion_tpu_torch.models import tracker as ttr
     from pislamfusion_tpu_torch.models.frame import Frame
     from pislamfusion_tpu_torch.ops import ransac as tr_ransac
@@ -448,6 +449,72 @@ def test_ransac_pnp_last_frame_step_matches_reference(capture, monkeypatch):
     assert np.abs(frame.pose_c2w - ref["pose"]).max() <= 1e-4 * scale
     assert abs(tr._n_inliers - ref["n_inliers"]) <= 2
     assert np.mean(frame.kp2mp != ref["kp2mp"]) <= 0.01
+
+
+def _pose_fit_frames(pkg, xy, n_kp):
+    """A source keyframe whose keypoints i bind map points i, and the
+    current frame with keypoints `xy` (320x240, fx 260), in `pkg`."""
+    import importlib
+    Frame = importlib.import_module(f"{pkg}.models.frame").Frame
+    Cam = importlib.import_module(f"{pkg}.core.camera").Camera
+    cam = Cam(*SLAM_CAM)
+    feats = dict(xy=xy.astype(np.float32),
+                 desc=np.zeros((n_kp, 256), np.uint8),
+                 angle=np.zeros(n_kp, np.float32),
+                 octave=np.zeros(n_kp, np.int32),
+                 response=np.ones(n_kp, np.float32),
+                 valid=np.ones(n_kp, bool))
+    src = Frame(id=0, timestamp=0.0, camera=cam)
+    src.set_features(feats, "orb")
+    src.kp2mp[:] = np.arange(n_kp)
+    cur = Frame(id=1, timestamp=1.0, camera=cam)
+    cur.set_features(feats, "orb")
+    return src, cur
+
+
+def test_relocalization_pose_fits_the_pnp_inliers():
+    """`_solve_pose` given the PnP-RANSAC inliers (the port's
+    `_track_ref_kf`, which relocalizes) is the JAX package's `_solve_pose`
+    on those matches alone: the same decision, pose within 1e-5 m, the same
+    bindings; the outliers change nothing. The JAX package fits every
+    match there, and its Huber LM can walk off the PnP pose (ROADMAP
+    queue 3: the real fixture's relocalization)."""
+    from pislamfusion_tpu.core.svar import Svar as JSvar
+    from pislamfusion_tpu.models import tracker as jtracker
+    from pislamfusion_tpu.models.worldmap import WorldMap as JWorldMap
+    from pislamfusion_tpu_torch.core.svar import Svar
+    from pislamfusion_tpu_torch.models import tracker as ttracker
+    from pislamfusion_tpu_torch.models.worldmap import WorldMap
+    from pislamfusion_tpu_torch.utils import host_se3 as hse3
+    rng = np.random.default_rng(4)
+    n, n_in = 60, 48
+    pos = np.concatenate([rng.uniform(-8, 8, (n, 2)),
+                          rng.uniform(-1, 1, (n, 1))], 1).astype(np.float32)
+    T_c2w = np.array([0.3, -0.2, 25.0, 1.0, 0.0, 0.0, 0.0], np.float32)
+    T_w2c = hse3.se3_inv(T_c2w)
+    pc = hse3.se3_apply(T_w2c, pos)
+    xy = 260.0 * pc[:, :2] / pc[:, 2:] + np.array([160.0, 120.0])
+    xy[:n_in] += rng.normal(0, 0.3, (n_in, 2))
+    xy[n_in:] = rng.uniform([0, 0], [320, 240], (n - n_in, 2))
+    has = np.ones(n, bool)
+    idxn = np.arange(n)
+    okn = np.ones(n, bool)
+    inliers = np.arange(n) < n_in
+    T0 = T_c2w + np.array([0.4, -0.3, 0.5, 0, 0, 0, 0], np.float32)
+    src, cur = _pose_fit_frames("pislamfusion_tpu_torch", xy, n)
+    tt = ttracker.Tracker(WorldMap(), Svar(), device="cpu")
+    assert tt._solve_pose(cur, T0, pos, has, idxn, okn, src, inliers)
+    jsrc, jcur = _pose_fit_frames("pislamfusion_tpu", xy, n)
+    jt = jtracker.Tracker(JWorldMap(), JSvar())
+    assert jt._solve_pose(jcur, T0, pos, has, idxn, okn & inliers, jsrc)
+    np.testing.assert_allclose(cur.pose_c2w[:3], jcur.pose_c2w[:3],
+                               atol=1e-5)
+    np.testing.assert_allclose(cur.pose_c2w[3:], jcur.pose_c2w[3:],
+                               atol=1e-6)
+    np.testing.assert_array_equal(cur.kp2mp, jcur.kp2mp)
+    assert tt._n_inliers == jt._n_inliers and (cur.kp2mp[n_in:] < 0).all()
+    # near the truth: 48 points under 0.3 px of noise, 25 m up
+    np.testing.assert_allclose(cur.pose_c2w[:3], T_c2w[:3], atol=0.2)
 
 
 def test_zhangmi_filter_matches_reference():

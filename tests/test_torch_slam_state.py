@@ -328,14 +328,14 @@ def _match_frames(state, mod_frame, cam_cls):
 
 def _noise_of(cls_name, key, n):
     """The Gumbel noise the JAX matcher of class `cls_name` draws from
-    `key`, in the order the port's multih draws it."""
+    `key`, one array a draw, in the order the port's multih draws it."""
     if cls_name in ("MatcherMultiH", "MatcherBoWH"):
-        return [np.stack([np.asarray(jax.random.gumbel(k, (192, n)))
-                          for k in jax.random.split(key, 4)])]
+        return [np.asarray(jax.random.gumbel(k, (192, n)))
+                for k in jax.random.split(key, 4)]
     kf, kh = jax.random.split(key)
-    return [np.asarray(jax.random.gumbel(kf, (192, n))),
-            np.stack([np.asarray(jax.random.gumbel(k, (192, n)))
-                      for k in jax.random.split(kh, 5)])]
+    return [np.asarray(jax.random.gumbel(kf, (192, n)))] + [
+        np.asarray(jax.random.gumbel(k, (192, n)))
+        for k in jax.random.split(kh, 5)]
 
 
 def _jax_matches(capture):
@@ -370,20 +370,24 @@ def test_matcher_gives_the_reference_matches(name, capture, jax_matches,
     from pislamfusion_tpu_torch.core.registry import MATCHERS
     from pislamfusion_tpu_torch.core.svar import Svar
     from pislamfusion_tpu_torch.models import matchers  # noqa: F401
-    from pislamfusion_tpu_torch.ops import ransac
+    from pislamfusion_tpu_torch.ops import threefry
     m = MATCHERS.create(name, Svar(), device="cpu")
     cls = type(m).__name__
     assert jax_matches[name] == cls
     j_idx, j_ok, noise = jax_matches[cls]
     draws = [torch.from_numpy(np.array(x)) for x in noise]
+    key_gumbel = threefry.Key.gumbel
 
-    def jax_draws(generator, shape, dtype=torch.float32):
+    def jax_draws(key, shape):
+        # the port's key draws the JAX key's noise to float rounding; the
+        # JAX draw itself is handed on, so that the matches are exact
         g = draws.pop(0)
-        assert tuple(g.shape) == tuple(shape)
+        np.testing.assert_allclose(key_gumbel(key, shape).numpy(),
+                                   g.numpy(), rtol=2.5e-7, atol=2.5e-7)
         return g
-    monkeypatch.setattr(ransac, "gumbel", jax_draws)
+    monkeypatch.setattr(threefry.Key, "gumbel", jax_draws)
     fa, fb = _match_frames(capture["after"], tframe, Camera)
-    idx, ok = m(torch.Generator().manual_seed(0), fa, fb)
+    idx, ok = m(threefry.Key(3), fa, fb)
     assert not draws
     np.testing.assert_array_equal(ok.numpy(), j_ok)
     np.testing.assert_array_equal(idx.numpy()[j_ok], j_idx[j_ok])
@@ -396,7 +400,8 @@ def test_bow_matcher_buckets_by_vocabulary_node(capture):
     from pislamfusion_tpu_torch.core.svar import Svar
     from pislamfusion_tpu_torch.models import matchers as tm
     fa, fb = _match_frames(capture["after"], tframe, Camera)
-    g = torch.Generator()
+    from pislamfusion_tpu_torch.ops import threefry
+    g = threefry.Key(0)
     _, ok_bow = tm.MatcherBoW(Svar(), device="cpu")(g, fa, fb)
     _, ok_bf = tm.MatcherBF(Svar(), device="cpu")(g, fa, fb)
     assert 0 < int(ok_bow.sum()) <= int(ok_bf.sum())

@@ -509,6 +509,43 @@ def test_threefry_key_splits_and_draws_as_the_reference(seed):
             _draw(jsub, 300, valid, ITERS, 6))
 
 
+def test_tracker_key_splits_and_draws_as_the_reference():
+    """The tracker draws from the reference's key: `_next_key` splits as
+    the JAX tracker's (tracker.py:76-78) from PRNGKey(SLAM.Seed);
+    `split(num)` gives jax.random.split(key, num)'s keys; the two-view
+    initializer and the multi-H matcher split a key as the reference's
+    (init2view.py:136, multih.py:58, :123, :132)."""
+    from pislamfusion_tpu_torch.core.svar import Svar
+    from pislamfusion_tpu_torch.models.tracker import Tracker
+    from pislamfusion_tpu_torch.models.worldmap import WorldMap
+    cfg = Svar()
+    cfg.set("SLAM.Seed", "3")
+    trk = Tracker(WorldMap(), cfg, device="cpu")
+    jkey = jax.random.PRNGKey(3)
+    for _ in range(4):
+        jkey, jsub = jax.random.split(jkey)
+        assert trk._next_key().words == tuple(np.asarray(jsub).tolist())
+    key = threefry.Key(11)
+    for num in (2, 4, 5):
+        assert [k.words for k in key.split(num)] == [
+            tuple(r) for r in np.asarray(jax.random.split(
+                jax.random.PRNGKey(11), num)).tolist()]
+    valid = np.arange(120) % 5 != 0
+    ka, kb = jax.random.split(jax.random.PRNGKey(11))
+    g_h, g_f = key.split()
+    np.testing.assert_array_equal(
+        N(tr.sample_indices(g_h, 120, T(valid), ITERS, 4)),
+        _draw(ka, 120, valid, ITERS, 4))
+    np.testing.assert_array_equal(
+        N(tr.sample_indices(g_f, 120, T(valid), ITERS, 8)),
+        _draw(kb, 120, valid, ITERS, 8))
+    noise = tmh._plane_noise(key, 4, ITERS, 120)
+    for t, j in zip(noise, jax.random.split(jax.random.PRNGKey(11), 4)):
+        np.testing.assert_allclose(
+            N(t), np.asarray(jax.random.gumbel(j, (ITERS, 120))),
+            rtol=2.5e-7, atol=2.5e-7)
+
+
 @pytest.mark.parametrize("planar", [False, True])
 def test_pnp_ransac_from_the_references_key(ransac_ref, planar):
     """find_pnp on threefry.Key(5) runs the samples that the JAX package's
@@ -686,7 +723,7 @@ def test_initializer_opt_matches_reference(init_ref, scene):
     ra, rb = _init_inputs()[scene]
     valid = np.ones(len(ra), bool)
     valid[::17] = False
-    tres = InitializerOpt()(torch.Generator(), T(ra), T(rb), T(valid))
+    tres = InitializerOpt()(threefry.Key(0), T(ra), T(rb), T(valid))
     # the joint pose + inverse-depth LM has a free scale (the monocular
     # gauge): its first steps agree to 1e-5, then rounding moves the two
     # along that direction apart (measured 1.3e-4 and 1.7e-3 in the pose,
@@ -716,11 +753,11 @@ def test_initializer_registry_and_estimators():
     assert create_initializer(cfg).lo_topk == 4
     cfg.set("Estimator", "nosuch")
     assert estimator_lo_topk(cfg) == 1
-    # the public entry draws on the generator: the same seed, the same run
+    # the public entry draws on the key: the same seed, the same run
     ra, rb = _init_inputs()["general"]
     v = torch.ones(len(ra), dtype=torch.bool)
-    runs = [create_initializer(cfg)(torch.Generator().manual_seed(3), T(ra),
-                                    T(rb), v) for _ in range(2)]
+    runs = [create_initializer(cfg)(threefry.Key(3), T(ra), T(rb), v)
+            for _ in range(2)]
     assert bool(runs[0].ok)
     for a, b in zip(*runs):
         np.testing.assert_array_equal(N(a), N(b))
@@ -803,14 +840,13 @@ def test_multih_exact_on_the_same_noise(multih_ref):
 def test_multih_public_entry_is_seeded():
     args = [T(x) for x in _multih_inputs()]
     da, va, xa, ang_a, db, vb, xb, ang_b = args
-    runs = [tmh.match_multih(torch.Generator().manual_seed(1), da, va, xa,
-                             db, vb, xb, n_h=2, ransac_iters=32)
-            for _ in range(2)]
+    runs = [tmh.match_multih(threefry.Key(1), da, va, xa, db, vb, xb,
+                             n_h=2, ransac_iters=32) for _ in range(2)]
     for a, b in zip(*runs):
         np.testing.assert_array_equal(N(a), N(b))
-    idx, ok, n = tmh.match_bf_multih(torch.Generator().manual_seed(1), da,
-                                     va, xa, ang_a, db, vb, xb, ang_b,
-                                     n_h=2, ransac_iters=32)
+    idx, ok, n = tmh.match_bf_multih(threefry.Key(1), da, va, xa, ang_a,
+                                     db, vb, xb, ang_b, n_h=2,
+                                     ransac_iters=32)
     assert int(ok.sum()) > 50 and int(n) >= 1
 
 

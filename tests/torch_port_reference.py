@@ -82,24 +82,78 @@ def seed_canvas(canvas_tiles, bands, rng):
     return lap, w
 
 
+class StartedOncePerSession:
+    """A result computed once per test session, started now and read
+    later: `start()` starts the work (a subprocess, say) and `read(handle)`
+    waits for it and returns its result. Under pytest-xdist the first
+    worker to set up takes the session's lock and starts the work; `get()`
+    then reads it, pickles the result (or its error) into the session's
+    shared temporary directory and frees the lock. Another worker's
+    `get()` waits on the lock and loads the pickle (a module-scoped
+    fixture alone is computed again by every worker that runs a test of
+    the module). So a subprocess runs beside the caller's own work in
+    between. `close()` (at the fixture's teardown) collects a result no
+    test read."""
+
+    def __init__(self, name, start, read, tmp_path_factory, worker_id):
+        self._read, self._proc, self._lock = read, None, None
+        self._value = self._path = None
+        self._started = False       # this object started the work
+        if worker_id == "master":
+            self._proc, self._started = start(), True
+            return
+        from filelock import FileLock, Timeout
+        self._path = tmp_path_factory.getbasetemp().parent / f"{name}.pkl"
+        lock = FileLock(f"{self._path}.lock")
+        try:
+            lock.acquire(timeout=0)
+        except Timeout:
+            return                      # another worker runs it
+        if self._path.is_file():
+            lock.release()
+            return
+        try:
+            self._proc, self._started = start(), True
+        except BaseException:
+            lock.release()
+            raise
+        self._lock = lock
+
+    def get(self):
+        if self._value is None and self._started:
+            try:
+                self._value = ("ok", self._read(self._proc))
+            except Exception as e:      # every waiting worker fails alike
+                self._value = ("error", repr(e))
+            self._proc, self._started = None, False
+            if self._lock is not None:
+                with open(self._path, "wb") as f:
+                    pickle.dump(self._value, f)
+                self._lock.release()
+                self._lock = None
+        if self._value is None:
+            from filelock import FileLock
+            with FileLock(f"{self._path}.lock"):
+                with open(self._path, "rb") as f:
+                    self._value = pickle.load(f)
+        kind, value = self._value
+        if kind != "ok":
+            raise AssertionError(f"the reference's run failed: {value}")
+        return value
+
+    def close(self):
+        if self._started:
+            try:
+                self.get()
+            except AssertionError:
+                pass
+
+
 def once_per_session(name, make, tmp_path_factory, worker_id):
-    """make(), computed once per test session. Under pytest-xdist the first
-    worker that needs it computes it and pickles it into the session's
-    shared temporary directory; a worker that needs it meanwhile waits on
-    the lock and loads it (a module-scoped fixture alone is computed again
-    by every worker that runs a test of the module)."""
-    if worker_id == "master":
-        return make()
-    from filelock import FileLock
-    path = tmp_path_factory.getbasetemp().parent / f"{name}.pkl"
-    with FileLock(f"{path}.lock"):
-        if path.is_file():
-            with open(path, "rb") as f:
-                return pickle.load(f)
-        out = make()
-        with open(path, "wb") as f:
-            pickle.dump(out, f)
-        return out
+    """make(), computed once per test session (StartedOncePerSession with a
+    start that computes at once)."""
+    return StartedOncePerSession(name, make, lambda value: value,
+                                 tmp_path_factory, worker_id).get()
 
 
 def jax_fastvo_run(frames, poses, fx, canvas, detector, n_features,
@@ -320,8 +374,9 @@ def jax_slam_capture():
       true centre as its ENU fix: poses after, and the fit's rms;
     - "ransac_pnp": `TrackerRansacPnP._track_last_frame`, before frame 3,
       of the features of a view 1 m on from the tracker's last frame: the
-      features, its result, pose, bindings and inliers, and the sample
-      indices its PnP RANSAC drew (6- and 4-point hypotheses)."""
+      features, its result, pose, bindings and inliers (its pose LM on the
+      PnP inliers, as the port's), and the sample indices its PnP RANSAC
+      drew (6- and 4-point hypotheses)."""
     import tempfile
 
     import jax.numpy as jnp
@@ -462,7 +517,9 @@ def jax_slam_capture():
 def _jax_ransac_pnp_step(slam, cfg, feats, fid):
     """The JAX package's `TrackerRansacPnP._track_last_frame` of a frame
     with the host features `feats` against `slam`'s last frame, on its map
-    (read only), recording the indices its PnP RANSAC draws."""
+    (read only), recording the indices its PnP RANSAC draws. Its pose LM
+    fits the PnP inliers, as the port's does (the JAX package fits every
+    match: ROADMAP queue 3)."""
     from pislamfusion_tpu.models import tracker as jt
     from pislamfusion_tpu.models.frame import Frame
     from pislamfusion_tpu.ops import ransac as jr
@@ -482,8 +539,18 @@ def _jax_ransac_pnp_step(slam, cfg, feats, fid):
                                                      iters // 2, 6)),
                       np.asarray(jr._sample_indices(k2, n, valid,
                                                      iters - iters // 2, 4))))
-        return find_pnp(key, p3d, p2n, valid, **kw)
+        res = find_pnp(key, p3d, p2n, valid, **kw)
+        inliers.append(np.asarray(res.inliers))
+        return res
 
+    inliers = []
+    solve_pose = tr._solve_pose
+
+    def on_the_inliers(frame, T_init_c2w, pos, has, idxn, okn, src_frame):
+        okn = okn & inliers[-1][np.where(okn, idxn, 0)]
+        return solve_pose(frame, T_init_c2w, pos, has, idxn, okn, src_frame)
+
+    tr._solve_pose = on_the_inliers
     jr.find_pnp = spy
     try:
         ok = tr._track_last_frame(frame)
@@ -605,6 +672,26 @@ def lagged_mapper(messenger_module, slam_class, lag, pool_class=LaggedPool):
     finally:
         messenger_module.ThreadPool = thread_pool
         slam_class._track_one = track_one
+
+
+@contextlib.contextmanager
+def reference_pose_fit(tracker_class):
+    """The port's tracker (`tracker_class`) with the JAX package's
+    relocalization pose fit: `_solve_pose` fits every match, not only the
+    PnP-RANSAC inliers `_track_ref_kf` hands it (ROADMAP queue 3), so that a
+    run that relocalizes can be held to the JAX package's."""
+    solve_pose = tracker_class._solve_pose
+
+    def fit_every_match(self, frame, T_init_c2w, pos, has, idxn, okn,
+                        src_frame, inliers=None):
+        return solve_pose(self, frame, T_init_c2w, pos, has, idxn, okn,
+                          src_frame)
+
+    tracker_class._solve_pose = fit_every_match
+    try:
+        yield
+    finally:
+        tracker_class._solve_pose = solve_pose
 
 
 # tests/test_soak.py:91-121's online liveness run (40 frames 1.8 m apart,
